@@ -4,17 +4,22 @@
 
 Phases, each printing one line with its elapsed seconds:
   1. device  - the card's name and power limit;
-  2. build   - nvcc builds csrc/fused_step.cu into build/mqe_tpu_torch/;
+  2. build   - nvcc builds csrc/fused_step.cu (both entry points) into
+               build/mqe_tpu_torch/, with ptxas' registers, stack and spills;
   3. kernel  - the CUDA substep kernel against its plain PyTorch version
                (physics/soa.py::step_actor) on the card, four cases, at the
-               tolerances of tests/test_pallas_step.py; then its time per
-               launch at the slice's shape beside the plain version's and the
-               bound of the card;
-  4. check   - one go1gate control step at 2 envs on the card (kernel) and on
-               the CPU (plain version) from the same state, compared;
-  5. slice   - go1gate at 4096 envs through make_mqe_env -> reset -> step:
-               1 warm step and 20 timed steps, the kernel launched 8 times a
-               step.
+               tolerances of tests/test_pallas_step.py; then its device time
+               per launch at the slice's shape (torch.profiler) beside the
+               plain version's time and the bound of the card;
+  4. fk      - the sphere-FK kernel against soa.fk_spheres at the slice's
+               shape (and two NPC models), at the tolerance of
+               tests/test_torch_soa.py::test_fk_matches_jax; its time and
+               bound likewise;
+  5. check   - one go1gate control step at 2 envs on the card (kernels) and
+               on the CPU (plain versions) from the same state, compared;
+  6. slice   - go1gate at 4096 envs through make_mqe_env -> reset -> step:
+               1 warm step and 20 timed steps, each kernel launched 8 times
+               a step.
 Then the kernels' JSON line, the card's name and power limit, and the result
 line `{"ok": true, "device": {...}}`. Any failed phase raises (exit code 1);
 with no CUDA device it exits with code 2 and prints no result.
@@ -46,6 +51,7 @@ PEAK_F32_PER_S = 67e12
 # tolerances of tests/test_pallas_step.py (pos, quat, lin_vel, ang_vel, q, qd)
 NAMES = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")
 TOLS = (1e-6, 1e-6, 1e-5, 1e-5, 1e-6, 1e-4)
+FK_TOL = 1e-6  # tests/test_torch_soa.py::test_fk_matches_jax
 
 T0 = time.perf_counter()
 
@@ -83,10 +89,10 @@ def rand_state(m, B, seed, z=0.35, q_sd=0.2, qd_sd=0.5, tau_sd=2.0, f_sd=5.0, de
     return (pos, quat, lv, av, q, qd, tau, sf, sx), payload, cshift
 
 
-def compare(case, ref, out):
+def compare(phase, case, ref, out, names=NAMES, tols=TOLS):
     worst = 0.0
     parts = []
-    for n, a, b, tol in zip(NAMES, ref, out, TOLS):
+    for n, a, b, tol in zip(names, ref, out, tols):
         if tuple(a.shape) != tuple(b.shape):
             raise AssertionError(f"{case} {n}: shape {tuple(b.shape)} vs {tuple(a.shape)}")
         if a.numel() == 0:
@@ -98,12 +104,12 @@ def compare(case, ref, out):
         if diff > tol:
             raise AssertionError(f"{case} {n}: max diff {diff:.3e} > {tol:.0e}")
         worst = max(worst, diff)
-    say("kernel", f"{case}: " + ", ".join(parts))
+    say(phase, f"{case}: " + ", ".join(parts))
     return worst
 
 
 def cuda_ms(fn, n):
-    """Mean device milliseconds of fn() over n back-to-back calls."""
+    """Mean milliseconds of fn() over n back-to-back calls, CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n):
@@ -111,6 +117,38 @@ def cuda_ms(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_ms(fn, kernel, n):
+    """Mean device milliseconds of the kernel named `kernel` over n calls of
+    fn(), from torch.profiler: the kernel's own time, without the host's
+    launch overhead, which exceeds it. The mean is over the launches the
+    profiler recorded, which may miss one of many."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if kernel in ev.key]
+    count = sum(ev.count for ev in evs)
+    if not n // 2 <= count <= n:
+        raise AssertionError(f"the profiler saw {count} launches of {kernel}, made {n}")
+    return sum(ev.self_device_time_total for ev in evs) / count / 1e3
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(tensors_in, tensors_out, ops):
+    """(bound ms, 'bytes' or 'operations', bytes, bytes ms, ops ms) of work that
+    reads each input once, writes each output once and does `ops` float ops."""
+    nb = nbytes(tensors_in) + nbytes(tensors_out)
+    bytes_ms = nb / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            nb, bytes_ms, ops_ms)
 
 
 def phase_kernel(smi):
@@ -121,13 +159,13 @@ def phase_kernel(smi):
     ref = soa.step_actor(go1, *args, payload=payload, com_shift=cshift)
     out = fused_step.step_actor_kernel(go1, *args, payload=payload, com_shift=cshift)
     torch.cuda.synchronize()
-    max_err = compare("go1 B=8192 payload+com_shift", ref, out)
+    max_err = compare("kernel", "go1 B=8192 payload+com_shift", ref, out)
 
     # case 2: go1 at B = 37 with a per-body world wrench
     args2, _, _ = rand_state(go1, 37, seed=3)
     rng = np.random.RandomState(7)
     wrench = torch.as_tensor(rng.randn(37, go1.nb, 6).astype(np.float32) * 3.0, device="cuda")
-    compare("go1 B=37 extra_wrench",
+    compare("kernel", "go1 B=37 extra_wrench",
             soa.step_actor(go1, *args2, extra_wrench=wrench),
             fused_step.step_actor_kernel(go1, *args2, extra_wrench=wrench))
 
@@ -138,34 +176,72 @@ def phase_kernel(smi):
         a3, _, _ = rand_state(m, 13, seed=11, z=1.0, q_sd=0.1, qd_sd=0.3, tau_sd=0.0, f_sd=2.0)
         w3 = torch.as_tensor(
             np.random.RandomState(12).randn(13, m.nb, 6).astype(np.float32) * 1.5, device="cuda")
-        compare(f"{name} root_free={root_free}",
+        compare("kernel", f"{name} root_free={root_free}",
                 soa.step_actor(m, *a3, extra_wrench=w3, root_free=root_free),
                 fused_step.step_actor_kernel(m, *a3, extra_wrench=w3, root_free=root_free))
 
-    # time at the slice's shape: the kernel alone on a packed buffer, and the
-    # plain version; inputs stay in L2 between launches (10.8 MB < 50 MB),
-    # as they do on the main path, where the pack just wrote them
-    X = fused_step.pack_inputs(go1, *args, payload=payload, com_shift=cshift)
-    launch = lambda: fused_step.launch(go1, X, True, True, False, 0.0025, True)
-    cuda_ms(launch, 3)
-    ms = cuda_ms(launch, 200)
+    # time at the slice's shape: the kernel's device time into preallocated
+    # outputs, the wrapper's time per call (checks, allocation, launch), and
+    # the plain version; inputs stay in L2 between launches (10.8 MB < 50 MB),
+    # as they do on the main path, where the contact stage just wrote them
+    launch = lambda: fused_step.launch_step(go1, *args, payload, cshift, None, out, 0.0025, True)
+    ms = device_ms(launch, "fused_step_kernel", 200)
     wrapper_ms = cuda_ms(
         lambda: fused_step.step_actor_kernel(go1, *args, payload=payload, com_shift=cshift), 50)
     plain = lambda: soa.step_actor(go1, *args, payload=payload, com_shift=cshift)
     cuda_ms(plain, 1)
     plain_ms = cuda_ms(plain, 3)
-    ops = count_ops(plain)
-    nbytes = (X.shape[0] + fused_step.out_channel_count(go1)) * 4 * B
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_PER_S * 1e3
-    say("kernel", f"B={B}: kernel {ms:.4f} ms/launch (wrapper with pack/unpack "
-        f"{wrapper_ms:.4f} ms), plain {plain_ms:.3f} ms/call; bound {max(bytes_ms, ops_ms):.4f} ms "
-        f"(bytes {nbytes} -> {bytes_ms:.4f} ms, ops {ops} -> {ops_ms:.4f} ms); on {smi}")
+    b_ms, b_by, nb, bytes_ms, ops_ms = bound((*args, payload, cshift), out, count_ops(plain))
+    say("kernel", f"B={B}: kernel {ms:.4f} ms/launch on the device (wrapper {wrapper_ms:.4f} "
+        f"ms/call), plain {plain_ms:.3f} ms/call; bound {b_ms:.4f} ms by {b_by} "
+        f"(bytes {nb} -> {bytes_ms:.4f} ms, ops -> {ops_ms:.4f} ms); on {smi}")
     return dict(
         name="fused_step", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
         replaces="mqe_tpu/physics/pallas_step.py:141", max_abs_err=max_err, ms=ms,
-        plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def fk_state(m, B, seed):
+    """Inputs drawn as tests/test_torch_soa.py::test_fk_matches_jax draws them."""
+    rng = np.random.RandomState(seed)
+    arrs = [rng.randn(B, 3) * 0.1, rng.randn(B, 4) * 0.05 + np.array([0, 0, 0, 1.0]),
+            rng.randn(B, 3) * 0.3, rng.randn(B, 3) * 0.3, rng.randn(B, m.nq) * 0.2,
+            rng.randn(B, m.nq) * 0.5]
+    arrs[1] /= np.linalg.norm(arrs[1], axis=1, keepdims=True)
+    return [torch.as_tensor(a.astype(np.float32), device="cuda") for a in arrs]
+
+
+def phase_fk(smi):
+    go1 = go1_model()
+    B = 8192
+    args = fk_state(go1, B, seed=5)
+    ref = soa.fk_spheres(go1, *args)
+    out = fused_step.fk_spheres_kernel(go1, *args)
+    torch.cuda.synchronize()
+    names, tols = ("sph_x", "sph_v"), (FK_TOL, FK_TOL)
+    max_err = compare("fk", f"go1 B={B}", ref, out, names, tols)
+    for name in ("seesaw", "ball"):
+        m = load_model(name, root_free=True)
+        a = fk_state(m, 37, seed=6)
+        compare("fk", f"{name} B=37", soa.fk_spheres(m, *a), fused_step.fk_spheres_kernel(m, *a),
+                names, tols)
+
+    launch = lambda: fused_step.launch_fk(go1, *args, *out)
+    ms = device_ms(launch, "fk_spheres_kernel", 200)
+    wrapper_ms = cuda_ms(lambda: fused_step.fk_spheres_kernel(go1, *args), 50)
+    plain = lambda: soa.fk_spheres(go1, *args)
+    cuda_ms(plain, 1)
+    plain_ms = cuda_ms(plain, 3)
+    b_ms, b_by, nb, bytes_ms, ops_ms = bound(args, out, count_ops(plain))
+    say("fk", f"B={B}: kernel {ms:.4f} ms/launch on the device (wrapper {wrapper_ms:.4f} "
+        f"ms/call), plain {plain_ms:.3f} ms/call; bound {b_ms:.4f} ms by {b_by} "
+        f"(bytes {nb} -> {bytes_ms:.4f} ms, ops -> {ops_ms:.4f} ms); on {smi}")
+    return dict(
+        name="fk_spheres", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
+        replaces="mqe_tpu/physics/soa.py:546",
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
     )
 
 
@@ -202,8 +278,12 @@ def phase_check():
         + f", obs {obs_d:.3e}, reward {rew_d:.3e}")
 
 
+KERNELS = {"fused_step": fused_step.step_actor_kernel, "fk_spheres": fused_step.fk_spheres_kernel}
+
+
 def phase_slice(smi, num_envs=4096, steps=20):
-    fused_step.step_actor_kernel.launches = 0
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
     wrap, _ = make_mqe_env("go1gate", num_envs=num_envs, seed=0, device="cuda")
     ts, obs = wrap.reset()
     torch.cuda.synchronize()
@@ -218,18 +298,19 @@ def phase_slice(smi, num_envs=4096, steps=20):
         ts, obs, rew, done, info = wrap.step(ts, cmds)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = fused_step.step_actor_kernel.launches
+    launches = {name: wrapper.launches for name, wrapper in KERNELS.items()}
     per_step = wrap.env.decimation * wrap.env.subiters
-    if launches != per_step * (steps + 1):
-        raise AssertionError(
-            f"kernel launched {launches} times in {steps + 1} steps, expected {per_step} a step")
+    for name, n in launches.items():
+        if n != per_step * (steps + 1):
+            raise AssertionError(
+                f"{name} launched {n} times in {steps + 1} steps, expected {per_step} a step")
     for name, t, shape in (("obs", obs, (num_envs, wrap.num_agents, wrap.obs_dim)),
                            ("reward", rew, (num_envs, wrap.num_agents))):
         if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{name}: shape {tuple(t.shape)} (expected {shape}) or non-finite")
     sps = num_envs * steps / dt
     say("slice", f"{steps} steps in {dt:.3f} s: {sps:.1f} env-steps/s, {dt / steps * 1e3:.2f} ms/step, "
-        f"kernel launches {launches} ({per_step} a step), resets {int(done.sum())} in the last "
+        f"kernel launches {launches} ({per_step} a step each), resets {int(done.sum())} in the last "
         f"step; on {smi}")
     return launches
 
@@ -248,13 +329,15 @@ def main():
     say("build", f"fused_step in {built.seconds:.2f} s ({'from the cache' if built.from_cache else 'built'}): "
         f"{built.path}")
     for line in built.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
+        if any(w in line for w in ("entry function", "registers", "spill", "stack frame")):
             say("build", "ptxas " + line.strip())
 
-    entry = phase_kernel(smi)
+    entries = [phase_kernel(smi), phase_fk(smi)]
     phase_check()
-    entry["launches"] = phase_slice(smi)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    launches = phase_slice(smi)
+    for entry in entries:
+        entry["launches"] = launches[entry["name"]]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)

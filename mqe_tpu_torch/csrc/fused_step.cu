@@ -1,45 +1,59 @@
-// One dynamics + integration substep for a batch of articulated actors that
-// share one BodyModel: forward kinematics down the tree, body velocities,
-// contact and gravity wrenches about body origins, Featherstone's
-// articulated-body algorithm with joint damping (6x6 Cholesky for a free
-// base), then semi-implicit Euler with velocity clips, joint limits and a
-// quaternion exp-step.
+// Two kernels over a batch of articulated actors that share one BodyModel,
+// one CUDA thread ("lane") per body:
 //
-// Replaces the TPU kernel `step_actor_pallas` (mqe_tpu/physics/pallas_step.py,
-// pallas_call at line 141, body `_kernel`), which runs the same chain,
-// `soa.step_entries`, over (tile, 128) lane tiles. Here one thread is one
-// robot. The plain PyTorch version of the same arithmetic is
-// mqe_tpu_torch/physics/soa.py::step_entries; every device function below is
-// named after the soa.py function it mirrors, and keeps its order of
-// operations.
+//   fused_step_kernel - one dynamics + integration substep: forward
+//     kinematics down the tree, body velocities, contact and gravity wrenches
+//     about body origins, Featherstone's articulated-body algorithm with
+//     joint damping (6x6 Cholesky for a free base), then semi-implicit Euler
+//     with velocity clips, joint limits and a quaternion exp-step.
+//     Replaces the TPU kernel `step_actor_pallas`
+//     (mqe_tpu/physics/pallas_step.py, pallas_call at line 141, body
+//     `_kernel`), which runs the same chain, `soa.step_entries`, over
+//     (tile, 128) lane tiles. Plain PyTorch version:
+//     mqe_tpu_torch/physics/soa.py::step_actor.
+//   fk_spheres_kernel - the first two stages of the same chain (FK and body
+//     velocities, the same device code) and the collision spheres' world
+//     positions and velocities: soa.fk_spheres, which feeds the contact
+//     stage. The JAX package has no Pallas kernel for it (XLA fuses it into
+//     the jitted step).
 //
-// Layout: the wrapper (physics/fused_step.py) packs the inputs channel-major
-// into X (C_in, B) float32, as pallas_step.py does: pos 3, quat 4, lin_vel 3,
-// ang_vel 3, q nq, qd nq, tau nq, sphere positions 3*ns, sphere forces 3*ns,
-// then payload 1, com shift 3 and per-body world wrench 6*nb where present.
-// Thread b reads channel c at X[c*B + b], so a warp reads 128 contiguous
-// bytes per channel. Y (C_out, B) holds pos 3, quat 4, lin_vel 3, ang_vel 3,
-// q nq, qd nq.
+// Every device function is named after the soa.py function it mirrors and
+// keeps its order of operations.
+//
+// Design. A robot gets `lanes` consecutive threads of a warp, the smallest
+// power of two >= nb (16 for go1's 13 bodies, so two robots a warp; 2 for
+// the one-joint NPC models, 1 for a free body). Lane i owns body i and keeps
+// its per-body quantities (poses, velocity, the 6x6 articulated inertia
+// IA, pA, c, U, d, u) in registers: nothing is indexed by a runtime body
+// number, so nothing lands in local memory. The tree is walked level by
+// level (physics/model.py::tree_schedule puts each body's depth and its
+// children in the model table), with __syncwarp() between levels; parent
+// and child exchange through a per-thread slot of shared memory:
+//   - root to leaves (FK, velocities, accelerations): a body at level L
+//     reads its parent's Rw, pw, v (or acc) from the parent's slot;
+//   - leaves to root (ABA): a body writes X^T Ia X and X^T pa into its slot,
+//     and its parent adds its children's in descending child index, the
+//     order of soa._aba's `for i = nb-1 .. 1`.
+// A body's lane sums its own spheres' wrenches in ascending sphere index, as
+// soa._contact_wrenches does. The 6x6 base solve runs on the root's lane.
+// Lanes of one robot read its (B, k) row-major state consecutively; the
+// kernel reads every state tensor through its own pointer and writes six
+// output tensors (no packed buffer). Optional inputs are null when absent.
 //
 // Model constants are not compiled in: they come from one float32 table per
 // model (physics/model.py::model_tables, offsets below), copied into shared
-// memory by each block. Body and sphere loops run to runtime counts under
-// the compile-time bounds MAX_NB and MAX_NS, so one build serves go1 (13
-// bodies, 12 joints, 40 spheres) and the NPC models (ball, box, seesaw, ...).
+// memory by each block, so one build serves go1 and the NPC models.
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 without tensor cores):
-// at the go1gate slice (B = 8192 robots, C_in = 293 with payload and com
-// shift, C_out = 37) the step must move (293 + 37) * 4 B * 8192 = 10.8 MB,
-// 3.2 us at the memory rate. The plain version does 2.25e4 float operations
-// per robot (chip_smoke.py counts them over its aten calls), 1.84e8 for the
-// batch, 2.8 us at the float32 rate. So the step is bound by bytes, 3.2 us.
-//
-// What this first design does about that bound: nothing yet. The per-robot
-// body arrays (Rw, pw, Rl, pl, v, IA, pA, c, U, d, u) are indexed by runtime
-// body numbers and so live in local memory (cached in L1/L2), which costs
-// far more than the 10.8 MB the step must move. It is correct and simple;
-// speed is later work (keeping the tree in registers per model, or one warp
-// per robot).
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 without tensor
+// cores), at the go1gate slice (B = 8192 robots):
+//   - step: reads pos, quat, lin_vel, ang_vel, q, qd, tau, sphere forces and
+//     positions, payload, com shift (293 floats a robot) and writes 37:
+//     10.8 MB, 3.2 us; the plain version's 2.25e4 float operations a robot
+//     take 2.8 us. Bound by bytes.
+//   - fk_spheres: reads 37 floats a robot, writes 240: 9.1 MB, 2.7 us.
+// What the design does about the bound: each byte is read once and written
+// once with neighbouring lanes on neighbouring addresses, and the tree's
+// arithmetic runs on 13 lanes a robot instead of one thread.
 
 #include <cuda_runtime.h>
 
@@ -64,7 +78,16 @@
 #define T_QDLIM (T_QHI + MAX_NB)
 #define T_SBODY (T_QDLIM + MAX_NB)
 #define T_SPOS (T_SBODY + MAX_NS)
-#define TABLE_SIZE (T_SPOS + MAX_NS * 3)
+#define T_LEVEL (T_SPOS + MAX_NS * 3)
+#define T_NCHILD (T_LEVEL + MAX_NB)
+#define T_CHILD (T_NCHILD + MAX_NB)
+#define TABLE_SIZE (T_CHILD + MAX_NB * MAX_NB)
+
+// floats of a thread's exchange slot in shared memory, stored field-major
+// (field f of slot k at f * THREADS + k: the lanes of a warp hit distinct
+// banks)
+#define FK_FIELDS 18    // Rw 9, pw 3, v 6
+#define STEP_FIELDS 42  // ABA: X^T Ia X 36, X^T pa 6 (also holds the FK's 18)
 
 struct V3 { float x, y, z; };
 struct M3 { float a[3][3]; };
@@ -171,8 +194,21 @@ DEV M3 quat_to_mat(float x, float y, float z, float w) {
   return r;
 }
 
+// sin and cos of a float angle, rounded from double precision. sinf/cosf
+// keep a 32-byte local array for the reduction of huge arguments, which puts
+// a stack frame on every kernel that calls them; sincospi reduces exactly
+// and needs none. The rounded double result is within about half a float
+// ulp of the exact value; sinf/cosf promise 2 ulp.
+DEV void sincos_(float angle, float* s, float* c) {
+  double sd, cd;
+  sincospi((double)angle * 0.318309886183790671538, &sd, &cd);  // angle / pi
+  *s = (float)sd;
+  *c = (float)cd;
+}
+
 DEV M3 rodrigues(float angle, V3 ax) {
-  float c = cosf(angle), s = sinf(angle);
+  float c, s;
+  sincos_(angle, &s, &c);
   float one_c = 1.0f - c;
   M3 r = {{{c + one_c * ax.x * ax.x, one_c * ax.x * ax.y - s * ax.z, one_c * ax.x * ax.z + s * ax.y},
            {one_c * ax.y * ax.x + s * ax.z, c + one_c * ax.y * ax.y, one_c * ax.y * ax.z - s * ax.x},
@@ -285,242 +321,421 @@ DEV SV joint_S(const float* T, int i) {
   return ((int)T[T_JTYPE + i] == JOINT_PRISMATIC) ? sv(zero, axis) : sv(axis, zero);
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_step_kernel(const float* __restrict__ X, float* __restrict__ Y,
-                  const float* __restrict__ tables, int B, int nb, int nq, int ns,
-                  int has_pay, int has_cs, int has_extra, int root_free,
-                  int model_root_free, float dt) {
-  __shared__ float T[TABLE_SIZE];
+
+// ---------------------------------------------------------------------------
+// the exchange slots
+// ---------------------------------------------------------------------------
+
+DEV void put(float* S, int slot, int f, float x) { S[f * THREADS + slot] = x; }
+DEV float get(const float* S, int slot, int f) { return S[f * THREADS + slot]; }
+DEV void put_v(float* S, int slot, int f, V3 a) {
+  put(S, slot, f, a.x); put(S, slot, f + 1, a.y); put(S, slot, f + 2, a.z);
+}
+DEV V3 get_v(const float* S, int slot, int f) {
+  return v3(get(S, slot, f), get(S, slot, f + 1), get(S, slot, f + 2));
+}
+DEV void put_m(float* S, int slot, int f, const M3& M) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) put(S, slot, f + 3 * i + j, M.a[i][j]);
+}
+DEV M3 get_m(const float* S, int slot, int f) {
+  M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) r.a[i][j] = get(S, slot, f + 3 * i + j);
+  return r;
+}
+DEV void put_s(float* S, int slot, int f, const SV& x) { put_v(S, slot, f, x.w); put_v(S, slot, f + 3, x.v); }
+DEV SV get_s(const float* S, int slot, int f) { return sv(get_v(S, slot, f), get_v(S, slot, f + 3)); }
+
+// ---------------------------------------------------------------------------
+// one lane = one body of one robot
+// ---------------------------------------------------------------------------
+
+struct Lane {
+  long long b;    // robot
+  int body;       // body of this lane
+  int slot;       // this lane's exchange slot (threadIdx.x)
+  int root;       // the slot of the robot's root body
+  int level;      // depth of the body in the tree (root 0)
+  int par;        // parent body (-1 for the root)
+  bool active;    // a body of a robot in the batch
+};
+
+// The block's copy of the model table, and the lane's place in the batch.
+// Every thread of the block runs every __syncwarp() of the kernel, active or
+// not, so the warp's masks stay full.
+DEV Lane lane_setup(float* T, const float* __restrict__ tables, int B, int nb,
+                    int lanes_log2, int* depth) {
   for (int k = threadIdx.x; k < TABLE_SIZE; k += blockDim.x) T[k] = tables[k];
   __syncthreads();
+  Lane L;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  L.b = tid >> lanes_log2;
+  L.body = threadIdx.x & ((1 << lanes_log2) - 1);
+  L.slot = threadIdx.x;
+  L.root = threadIdx.x - L.body;
+  L.active = L.b < B && L.body < nb;
+  L.level = L.body < nb ? (int)T[T_LEVEL + L.body] : 0;
+  L.par = L.body < nb ? (int)T[T_PARENT + L.body] : -1;
+  int d = 0;
+  for (int i = 0; i < nb; ++i) d = max(d, (int)T[T_LEVEL + i]);
+  *depth = d;
+  return L;
+}
 
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t Bs = (size_t)B;
-  const float* xb = X + b;
-  auto in = [&](int c) { return xb[(size_t)c * Bs]; };
-  auto in3 = [&](int c) { return v3(in(c), in(c + 1), in(c + 2)); };
+// The lane's inputs from the (B, k) row-major state tensors.
+struct BodyIn {
+  V3 p, lv, av;
+  float qx, qy, qz, qw;
+  float qi, qdi;
+};
 
-  const int c_q = 13, c_qd = 13 + nq, c_tau = 13 + 2 * nq, c_sx = 13 + 3 * nq;
-  const int c_sf = c_sx + 3 * ns;
-  const int c_pay = c_sf + 3 * ns;
-  const int c_cs = c_pay + (has_pay ? 1 : 0);
-  const int c_extra = c_cs + (has_cs ? 3 : 0);
-
-  const V3 p = in3(0);
-  const float qx = in(3), qy = in(4), qz = in(5), qw = in(6);
-  const V3 lv = in3(7), av = in3(10);
-  float ql[MAX_NB], qdl[MAX_NB], tau[MAX_NB];
-  for (int j = 0; j < nq; ++j) {
-    ql[j] = in(c_q + j);
-    qdl[j] = in(c_qd + j);
-    tau[j] = in(c_tau + j);
+DEV BodyIn load_body(const Lane& L, int nq, const float* __restrict__ pos,
+                     const float* __restrict__ quat, const float* __restrict__ lin_vel,
+                     const float* __restrict__ ang_vel, const float* __restrict__ q,
+                     const float* __restrict__ qd) {
+  BodyIn in;
+  const V3 z = v3(0.0f, 0.0f, 0.0f);
+  in.p = z; in.lv = z; in.av = z;
+  in.qx = 0.0f; in.qy = 0.0f; in.qz = 0.0f; in.qw = 1.0f;
+  in.qi = 0.0f; in.qdi = 0.0f;
+  if (!L.active) return in;
+  const long long b = L.b;
+  if (L.body == 0) {
+    in.p = v_load(pos + 3 * b);
+    in.lv = v_load(lin_vel + 3 * b);
+    in.av = v_load(ang_vel + 3 * b);
+    const float* qt = quat + 4 * b;
+    in.qx = qt[0]; in.qy = qt[1]; in.qz = qt[2]; in.qw = qt[3];
+  } else {
+    in.qi = q[b * nq + L.body - 1];
+    in.qdi = qd[b * nq + L.body - 1];
   }
-  const float pay = has_pay ? in(c_pay) : 0.0f;
-  const V3 cs = has_cs ? in3(c_cs) : v3(0.0f, 0.0f, 0.0f);
+  return in;
+}
 
-  // ---- _fk ----
-  M3 Rw[MAX_NB], Rl[MAX_NB];
-  V3 pw[MAX_NB], pl[MAX_NB];
-  Rw[0] = quat_to_mat(qx, qy, qz, qw);
-  pw[0] = p;
-  for (int i = 1; i < nb; ++i) {
-    const int par = (int)T[T_PARENT + i];
+// Per-body kinematics: world pose (Rw, pw), pose in the parent (Rl, pl) and
+// the body-frame spatial velocity v (soa._fk and soa._body_vels).
+struct Kin {
+  M3 Rw, Rl;
+  V3 pw, pl;
+  SV v;
+};
+
+// _fk + _body_vels, level by level. The root's lane reads the base state
+// of `in`, a joint lane its joint's qi, qdi.
+DEV Kin fk_levels(const float* T, float* S, const Lane& L, int depth, const BodyIn& in) {
+  Kin k;
+  const int i = L.body;
+  if (L.active && i == 0) {
+    k.Rw = quat_to_mat(in.qx, in.qy, in.qz, in.qw);
+    k.pw = in.p;
+    k.v = sv(mT_vec(k.Rw, in.av), mT_vec(k.Rw, in.lv));
+    put_m(S, L.slot, 0, k.Rw);
+    put_v(S, L.slot, 9, k.pw);
+    put_s(S, L.slot, 12, k.v);
+  }
+  if (L.active && i > 0) {
     const M3 jrot = m_load(T + T_JROT + 9 * i);
     const V3 jpos = v_load(T + T_JPOS + 3 * i);
     const V3 axis = v_load(T + T_JAXIS + 3 * i);
-    const float qi = ql[i - 1];
     if ((int)T[T_JTYPE + i] == JOINT_PRISMATIC) {
-      Rl[i] = jrot;
-      pl[i] = v_add(jpos, m_vec(jrot, v_scale(axis, qi)));
+      k.Rl = jrot;
+      k.pl = v_add(jpos, m_vec(jrot, v_scale(axis, in.qi)));
     } else {
-      Rl[i] = m_mul(jrot, rodrigues(qi, axis));
-      pl[i] = jpos;
+      k.Rl = m_mul(jrot, rodrigues(in.qi, axis));
+      k.pl = jpos;
     }
-    Rw[i] = m_mul(Rw[par], Rl[i]);
-    pw[i] = v_add(pw[par], m_vec(Rw[par], pl[i]));
   }
-
-  // ---- _body_vels (body-frame spatial velocities) ----
-  SV v[MAX_NB];
-  v[0] = sv(mT_vec(Rw[0], av), mT_vec(Rw[0], lv));
-  for (int i = 1; i < nb; ++i) {
-    const int par = (int)T[T_PARENT + i];
-    const SV S = joint_S(T, i);
-    const SV vi = x_motion(Rl[i], pl[i], v[par]);
-    v[i] = sv(v_add(vi.w, v_scale(S.w, qdl[i - 1])), v_add(vi.v, v_scale(S.v, qdl[i - 1])));
+  for (int lev = 1; lev <= depth; ++lev) {
+    __syncwarp();
+    if (L.active && L.level == lev) {
+      const int ps = L.root + L.par;
+      const M3 Rwp = get_m(S, ps, 0);
+      const V3 pwp = get_v(S, ps, 9);
+      const SV vp = get_s(S, ps, 12);
+      k.Rw = m_mul(Rwp, k.Rl);
+      k.pw = v_add(pwp, m_vec(Rwp, k.pl));
+      const SV S_ = joint_S(T, i);
+      const SV vi = x_motion(k.Rl, k.pl, vp);
+      k.v = sv(v_add(vi.w, v_scale(S_.w, in.qdi)), v_add(vi.v, v_scale(S_.v, in.qdi)));
+      put_m(S, L.slot, 0, k.Rw);
+      put_v(S, L.slot, 9, k.pw);
+      put_s(S, L.slot, 12, k.v);
+    }
   }
+  __syncwarp();  // every read of the slots is done: they may be reused
+  return k;
+}
 
-  // ---- _contact_wrenches + _gravity_wrenches (+ extra): world, about origins ----
-  SV fe[MAX_NB];
-  for (int i = 0; i < nb; ++i) fe[i] = sv(v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f));
+// ---------------------------------------------------------------------------
+// fk_spheres: soa.fk_spheres -> sph_x, sph_v (B, ns, 3)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+fk_spheres_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
+                  const float* __restrict__ lin_vel, const float* __restrict__ ang_vel,
+                  const float* __restrict__ q, const float* __restrict__ qd,
+                  float* __restrict__ sph_x, float* __restrict__ sph_v,
+                  const float* __restrict__ tables, int B, int nb, int nq, int ns,
+                  int lanes_log2) {
+  __shared__ float T[TABLE_SIZE];
+  __shared__ float S[FK_FIELDS * THREADS];
+  int depth;
+  const Lane L = lane_setup(T, tables, B, nb, lanes_log2, &depth);
+  const BodyIn in = load_body(L, nq, pos, quat, lin_vel, ang_vel, q, qd);
+  const Kin k = fk_levels(T, S, L, depth, in);
+  if (!L.active) return;
+  // _body_vels' world velocity, then _spheres for this body's spheres
+  const V3 ww = m_vec(k.Rw, k.v.w), vw = m_vec(k.Rw, k.v.v);
   for (int s = 0; s < ns; ++s) {
-    const int bs = (int)T[T_SBODY + s];
-    const V3 x = in3(c_sx + 3 * s);
-    const V3 f = in3(c_sf + 3 * s);
-    const V3 n = v_cross(v_sub(x, pw[bs]), f);
-    fe[bs] = sv(v_add(fe[bs].w, n), v_add(fe[bs].v, f));
+    if ((int)T[T_SBODY + s] != L.body) continue;
+    const V3 off = v_load(T + T_SPOS + 3 * s);
+    const V3 x = v_add(k.pw, m_vec(k.Rw, off));
+    const V3 vel = v_add(vw, v_cross(ww, v_sub(x, k.pw)));
+    float* xo = sph_x + (L.b * ns + s) * 3;
+    float* vo = sph_v + (L.b * ns + s) * 3;
+    xo[0] = x.x; xo[1] = x.y; xo[2] = x.z;
+    vo[0] = vel.x; vo[1] = vel.y; vo[2] = vel.z;
   }
-  for (int i = 0; i < nb; ++i) {
+}
+
+// ---------------------------------------------------------------------------
+// fused_step: soa.step_actor -> pos, quat, lin_vel, ang_vel, q, qd
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+fused_step_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
+                  const float* __restrict__ lin_vel, const float* __restrict__ ang_vel,
+                  const float* __restrict__ q, const float* __restrict__ qd,
+                  const float* __restrict__ tau, const float* __restrict__ sph_force,
+                  const float* __restrict__ sph_x, const float* __restrict__ payload,
+                  const float* __restrict__ com_shift, const float* __restrict__ extra,
+                  float* __restrict__ pos_o, float* __restrict__ quat_o,
+                  float* __restrict__ lin_vel_o, float* __restrict__ ang_vel_o,
+                  float* __restrict__ q_o, float* __restrict__ qd_o,
+                  const float* __restrict__ tables, int B, int nb, int nq, int ns,
+                  int lanes_log2, int root_free, int model_root_free, float dt) {
+  __shared__ float T[TABLE_SIZE];
+  __shared__ float S[STEP_FIELDS * THREADS];
+  int depth;
+  const Lane L = lane_setup(T, tables, B, nb, lanes_log2, &depth);
+  const int i = L.body;
+  const long long b = L.b;
+  const BodyIn in = load_body(L, nq, pos, quat, lin_vel, ang_vel, q, qd);
+  const bool has_pay = payload != nullptr, has_cs = com_shift != nullptr;
+  float pay = 0.0f, taui = 0.0f;
+  V3 cs = v3(0.0f, 0.0f, 0.0f);
+  if (L.active && i == 0) {
+    if (has_pay) pay = payload[b];
+    if (has_cs) cs = v_load(com_shift + 3 * b);
+  }
+  if (L.active && i > 0) taui = tau[b * nq + i - 1];
+
+  // ---- _fk, _body_vels ----
+  const Kin k = fk_levels(T, S, L, depth, in);
+
+  SV pA = sv(v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f)), c = pA, U = pA;
+  SM IA;
+  float d = 1.0f, u = 0.0f;
+  if (L.active) {
+    // ---- _contact_wrenches (this body's spheres, ascending) + _gravity_wrenches (+ extra) ----
+    V3 fn = v3(0.0f, 0.0f, 0.0f), ff = fn;
+    for (int s = 0; s < ns; ++s) {
+      if ((int)T[T_SBODY + s] != i) continue;
+      const V3 x = v_load(sph_x + (b * ns + s) * 3);
+      const V3 f = v_load(sph_force + (b * ns + s) * 3);
+      fn = v_add(fn, v_cross(v_sub(x, k.pw), f));
+      ff = v_add(ff, f);
+    }
     float mass = T[T_MASS + i];
     V3 com = v_load(T + T_COM + 3 * i);
     if (i == 0) {
       if (has_pay) mass = mass + pay;
       if (has_cs) com = v_add(com, cs);
     }
-    const V3 com_w = m_vec(Rw[i], com);
-    const V3 f = v3(0.0f, 0.0f, mass * -9.81f);
-    fe[i] = sv(v_add(fe[i].w, v_cross(com_w, f)), v_add(fe[i].v, f));
-    if (has_extra) {
-      const V3 en = in3(c_extra + 6 * i), ef = in3(c_extra + 6 * i + 3);
-      fe[i] = sv(v_add(fe[i].w, en), v_add(fe[i].v, ef));
+    const V3 com_w = m_vec(k.Rw, com);
+    const V3 fg = v3(0.0f, 0.0f, mass * -9.81f);
+    fn = v_add(fn, v_cross(com_w, fg));
+    ff = v_add(ff, fg);
+    if (extra != nullptr) {
+      const float* e = extra + (b * nb + i) * 6;
+      fn = v_add(fn, v3(e[0], e[1], e[2]));
+      ff = v_add(ff, v3(e[3], e[4], e[5]));
     }
-  }
 
-  // ---- _inertias ----
-  SM IA[MAX_NB];
-  for (int i = 0; i < nb; ++i) {
+    // ---- _inertias ----
     if (i == 0 && (has_pay || has_cs)) {
-      float m0 = T[T_MASS] + pay;
-      V3 com0 = v_load(T + T_COM);
-      if (has_cs) com0 = v_add(com0, cs);
-      IA[0] = spatial_inertia_blocks(m0, com0, m_load(T + T_ICOM));
+      IA = spatial_inertia_blocks(T[T_MASS] + pay, v_add(v_load(T + T_COM), cs),
+                                  m_load(T + T_ICOM));
     } else {
       const float* Ip = T + T_ISPAT + 36 * i;
-      SM r;
 #pragma unroll
       for (int ii = 0; ii < 3; ++ii)
 #pragma unroll
         for (int jj = 0; jj < 3; ++jj) {
-          r.A.a[ii][jj] = Ip[ii * 6 + jj];
-          r.B.a[ii][jj] = Ip[ii * 6 + jj + 3];
-          r.C.a[ii][jj] = Ip[(ii + 3) * 6 + jj];
-          r.D.a[ii][jj] = Ip[(ii + 3) * 6 + jj + 3];
+          IA.A.a[ii][jj] = Ip[ii * 6 + jj];
+          IA.B.a[ii][jj] = Ip[ii * 6 + jj + 3];
+          IA.C.a[ii][jj] = Ip[(ii + 3) * 6 + jj];
+          IA.D.a[ii][jj] = Ip[(ii + 3) * 6 + jj + 3];
         }
-      IA[i] = r;
+    }
+
+    // ---- _aba: bias force and velocity product ----
+    const SV fb = sv(mT_vec(k.Rw, fn), mT_vec(k.Rw, ff));
+    const SV bias = cross_force(k.v, s_vec(IA, k.v));
+    pA = sv(v_sub(bias.w, fb.w), v_sub(bias.v, fb.v));
+    if (i > 0) {
+      const SV S_ = joint_S(T, i);
+      c = cross_motion(k.v, sv(v_scale(S_.w, in.qdi), v_scale(S_.v, in.qdi)));
     }
   }
 
-  // ---- _aba ----
-  SV pA[MAX_NB], c[MAX_NB], U[MAX_NB];
-  float d[MAX_NB], u[MAX_NB], qdd[MAX_NB];
-  for (int i = 0; i < nb; ++i) {
-    const SV fb = sv(mT_vec(Rw[i], fe[i].w), mT_vec(Rw[i], fe[i].v));
-    const SV bias = cross_force(v[i], s_vec(IA[i], v[i]));
-    pA[i] = sv(v_sub(bias.w, fb.w), v_sub(bias.v, fb.v));
-  }
-  for (int i = 1; i < nb; ++i) {
-    const SV S = joint_S(T, i);
-    c[i] = cross_motion(v[i], sv(v_scale(S.w, qdl[i - 1]), v_scale(S.v, qdl[i - 1])));
-  }
-  for (int i = nb - 1; i > 0; --i) {
-    const int par = (int)T[T_PARENT + i];
-    const SV S = joint_S(T, i);
-    const float tau_eff = tau[i - 1] - T[T_DAMP + i - 1] * qdl[i - 1];
-    U[i] = s_vec(IA[i], S);
-    d[i] = s_dot(S, U[i]) + 1e-9f;
-    u[i] = tau_eff - s_dot(S, pA[i]);
-    const float inv_d = 1.0f / d[i];
-    const SM Ia = s_sub(IA[i], s_outer_scaled(U[i], U[i], inv_d));
-    const SV Iac = s_vec(Ia, c[i]);
-    const float us = u[i] * inv_d;
-    const SV Uu = sv(v_scale(U[i].w, us), v_scale(U[i].v, us));
-    const SV pa = sv(v_add(v_add(pA[i].w, Iac.w), Uu.w), v_add(v_add(pA[i].v, Iac.v), Uu.v));
+  // ---- _aba: leaves to root ----
+  for (int lev = depth; lev >= 1; --lev) {
+    if (L.active && L.level == lev) {
+      const SV S_ = joint_S(T, i);
+      const float tau_eff = taui - T[T_DAMP + i - 1] * in.qdi;
+      U = s_vec(IA, S_);
+      d = s_dot(S_, U) + 1e-9f;
+      u = tau_eff - s_dot(S_, pA);
+      const float inv_d = 1.0f / d;
+      const SM Ia = s_sub(IA, s_outer_scaled(U, U, inv_d));
+      const SV Iac = s_vec(Ia, c);
+      const float us = u * inv_d;
+      const SV Uu = sv(v_scale(U.w, us), v_scale(U.v, us));
+      const SV pa = sv(v_add(v_add(pA.w, Iac.w), Uu.w), v_add(v_add(pA.v, Iac.v), Uu.v));
 
-    // IA[par] += X^T Ia X with X = [[Rt, 0], [-Rt phat, Rt]]
-    const M3& R = Rl[i];
-    const M3 Rt = m_transpose(R);
-    const M3 P = m_skew(pl[i]);
-    const M3 RtP = m_mul(Rt, P);
-    const M3 PR = m_mul(P, R);
-    const M3 M11 = m_sub(m_mul(Ia.A, Rt), m_mul(Ia.B, RtP));
-    const M3 M12 = m_mul(Ia.B, Rt);
-    const M3 M21 = m_sub(m_mul(Ia.C, Rt), m_mul(Ia.D, RtP));
-    const M3 M22 = m_mul(Ia.D, Rt);
-    SM N;
-    N.A = m_add(m_mul(R, M11), m_mul(PR, M21));
-    N.B = m_add(m_mul(R, M12), m_mul(PR, M22));
-    N.C = m_mul(R, M21);
-    N.D = m_mul(R, M22);
-    IA[par] = s_add(IA[par], N);
-    const SV xf = xT_force(Rl[i], pl[i], pa);
-    pA[par] = sv(v_add(pA[par].w, xf.w), v_add(pA[par].v, xf.v));
+      // X^T Ia X with X = [[Rt, 0], [-Rt phat, Rt]], and X^T pa
+      const M3& R = k.Rl;
+      const M3 Rt = m_transpose(R);
+      const M3 P = m_skew(k.pl);
+      const M3 RtP = m_mul(Rt, P);
+      const M3 PR = m_mul(P, R);
+      const M3 M11 = m_sub(m_mul(Ia.A, Rt), m_mul(Ia.B, RtP));
+      const M3 M12 = m_mul(Ia.B, Rt);
+      const M3 M21 = m_sub(m_mul(Ia.C, Rt), m_mul(Ia.D, RtP));
+      const M3 M22 = m_mul(Ia.D, Rt);
+      put_m(S, L.slot, 0, m_add(m_mul(R, M11), m_mul(PR, M21)));
+      put_m(S, L.slot, 9, m_add(m_mul(R, M12), m_mul(PR, M22)));
+      put_m(S, L.slot, 18, m_mul(R, M21));
+      put_m(S, L.slot, 27, m_mul(R, M22));
+      put_s(S, L.slot, 36, xT_force(k.Rl, k.pl, pa));
+    }
+    __syncwarp();
+    if (L.active && L.level == lev - 1) {
+      // IA[par] += N, pA[par] += xf, children in descending index
+      const int nch = (int)T[T_NCHILD + i];
+      for (int j = 0; j < nch; ++j) {
+        const int cs_ = L.root + (int)T[T_CHILD + MAX_NB * i + j];
+        SM N;
+        N.A = get_m(S, cs_, 0);
+        N.B = get_m(S, cs_, 9);
+        N.C = get_m(S, cs_, 18);
+        N.D = get_m(S, cs_, 27);
+        IA = s_add(IA, N);
+        const SV xf = get_s(S, cs_, 36);
+        pA = sv(v_add(pA.w, xf.w), v_add(pA.v, xf.v));
+      }
+    }
+    __syncwarp();
   }
 
-  SV a0;
-  if (model_root_free) {
-    SM I0 = IA[0];
+  // ---- _aba: the base, on the root's lane ----
+  SV acc = sv(v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f));
+  if (L.active && i == 0) {
+    if (model_root_free) {
+      SM I0 = IA;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      I0.A.a[k][k] = I0.A.a[k][k] + 1e-9f;
-      I0.D.a[k][k] = I0.D.a[k][k] + 1e-9f;
+      for (int kk = 0; kk < 3; ++kk) {
+        I0.A.a[kk][kk] = I0.A.a[kk][kk] + 1e-9f;
+        I0.D.a[kk][kk] = I0.D.a[kk][kk] + 1e-9f;
+      }
+      acc = solve_spd6(I0, sv(v_scale(pA.w, -1.0f), v_scale(pA.v, -1.0f)));
+    } else {
+      const float z = pA.w.x * 0.0f;
+      acc = sv(v3(z, z, z), v3(z, z, z));
     }
-    a0 = solve_spd6(I0, sv(v_scale(pA[0].w, -1.0f), v_scale(pA[0].v, -1.0f)));
+    put_s(S, L.slot, 0, acc);
+  }
+
+  // ---- _aba: root to leaves ----
+  float qdd = 0.0f;
+  for (int lev = 1; lev <= depth; ++lev) {
+    __syncwarp();
+    if (L.active && L.level == lev) {
+      const SV S_ = joint_S(T, i);
+      SV ai = x_motion(k.Rl, k.pl, get_s(S, L.root + L.par, 0));
+      ai = sv(v_add(ai.w, c.w), v_add(ai.v, c.v));
+      qdd = (u - s_dot(U, ai)) / d;
+      acc = sv(v_add(ai.w, v_scale(S_.w, qdd)), v_add(ai.v, v_scale(S_.v, qdd)));
+      put_s(S, L.slot, 0, acc);
+    }
+  }
+  if (!L.active) return;  // no __syncwarp() follows
+
+  if (i == 0) {
+    // ---- world accelerations of the base (step_entries) ----
+    V3 omega_dot_w = m_vec(k.Rw, acc.w);
+    V3 a_lin_w = m_vec(k.Rw, v_add(acc.v, v_cross(k.v.w, k.v.v)));
+    if (!root_free) {
+      const float z = in.p.x * 0.0f;
+      omega_dot_w = v3(z, z, z);
+      a_lin_w = v3(z, z, z);
+    }
+
+    // ---- _integrate: the base ----
+    const V3 av = in.av, lv = in.lv, p = in.p;
+    const V3 av2 = v3(clipf_(av.x + dt * omega_dot_w.x, -50.0f, 50.0f),
+                      clipf_(av.y + dt * omega_dot_w.y, -50.0f, 50.0f),
+                      clipf_(av.z + dt * omega_dot_w.z, -50.0f, 50.0f));
+    const V3 lv2 = v3(clipf_(lv.x + dt * a_lin_w.x, -100.0f, 100.0f),
+                      clipf_(lv.y + dt * a_lin_w.y, -100.0f, 100.0f),
+                      clipf_(lv.z + dt * a_lin_w.z, -100.0f, 100.0f));
+    const V3 p2 = v3(p.x + dt * lv2.x, p.y + dt * lv2.y, p.z + dt * lv2.z);
+
+    // _quat_integrate
+    const float qx = in.qx, qy = in.qy, qz = in.qz, qw = in.qw;
+    const float angle = sqrtf(av2.x * av2.x + av2.y * av2.y + av2.z * av2.z);
+    const float inv = 1.0f / maxf_(angle, 1e-9f);
+    const float half = 0.5f * angle * dt;
+    float sin_half, aw;
+    sincos_(half, &sin_half, &aw);
+    const float sh = sin_half * inv;
+    float ax = av2.x * sh, ay = av2.y * sh, az = av2.z * sh;
+    if (angle < 1e-9f) { ax = 0.0f; ay = 0.0f; az = 0.0f; aw = 1.0f; }
+    const float ox = aw * qx + ax * qw + ay * qz - az * qy;
+    const float oy = aw * qy - ax * qz + ay * qw + az * qx;
+    const float oz = aw * qz + ax * qy - ay * qx + az * qw;
+    const float ow = aw * qw - ax * qx - ay * qy - az * qz;
+    const float norm = maxf_(sqrtf(ox * ox + oy * oy + oz * oz + ow * ow), 1e-9f);
+
+    float* po = pos_o + 3 * b;
+    po[0] = p2.x; po[1] = p2.y; po[2] = p2.z;
+    float* qo = quat_o + 4 * b;
+    qo[0] = ox / norm; qo[1] = oy / norm; qo[2] = oz / norm; qo[3] = ow / norm;
+    float* lo_ = lin_vel_o + 3 * b;
+    lo_[0] = lv2.x; lo_[1] = lv2.y; lo_[2] = lv2.z;
+    float* ao = ang_vel_o + 3 * b;
+    ao[0] = av2.x; ao[1] = av2.y; ao[2] = av2.z;
   } else {
-    const float z = pA[0].w.x * 0.0f;
-    a0 = sv(v3(z, z, z), v3(z, z, z));
-  }
-  SV* acc = fe;  // the world wrenches are consumed; reuse their storage
-  acc[0] = a0;
-  for (int i = 1; i < nb; ++i) {
-    const int par = (int)T[T_PARENT + i];
-    const SV S = joint_S(T, i);
-    SV ai = x_motion(Rl[i], pl[i], acc[par]);
-    ai = sv(v_add(ai.w, c[i].w), v_add(ai.v, c[i].v));
-    const float qdd_i = (u[i] - s_dot(U[i], ai)) / d[i];
-    acc[i] = sv(v_add(ai.w, v_scale(S.w, qdd_i)), v_add(ai.v, v_scale(S.v, qdd_i)));
-    qdd[i - 1] = qdd_i;
-  }
-
-  // ---- world accelerations of the base (step_entries) ----
-  V3 omega_dot_w = m_vec(Rw[0], a0.w);
-  V3 a_lin_w = m_vec(Rw[0], v_add(a0.v, v_cross(v[0].w, v[0].v)));
-  if (!root_free) {
-    const float z = p.x * 0.0f;
-    omega_dot_w = v3(z, z, z);
-    a_lin_w = v3(z, z, z);
-  }
-
-  // ---- _integrate ----
-  const V3 av2 = v3(clipf_(av.x + dt * omega_dot_w.x, -50.0f, 50.0f),
-                    clipf_(av.y + dt * omega_dot_w.y, -50.0f, 50.0f),
-                    clipf_(av.z + dt * omega_dot_w.z, -50.0f, 50.0f));
-  const V3 lv2 = v3(clipf_(lv.x + dt * a_lin_w.x, -100.0f, 100.0f),
-                    clipf_(lv.y + dt * a_lin_w.y, -100.0f, 100.0f),
-                    clipf_(lv.z + dt * a_lin_w.z, -100.0f, 100.0f));
-  const V3 p2 = v3(p.x + dt * lv2.x, p.y + dt * lv2.y, p.z + dt * lv2.z);
-
-  // _quat_integrate
-  const float angle = sqrtf(av2.x * av2.x + av2.y * av2.y + av2.z * av2.z);
-  const float inv = 1.0f / maxf_(angle, 1e-9f);
-  const float half = 0.5f * angle * dt;
-  const float sh = sinf(half) * inv;
-  float ax = av2.x * sh, ay = av2.y * sh, az = av2.z * sh, aw = cosf(half);
-  if (angle < 1e-9f) { ax = 0.0f; ay = 0.0f; az = 0.0f; aw = 1.0f; }
-  const float ox = aw * qx + ax * qw + ay * qz - az * qy;
-  const float oy = aw * qy - ax * qz + ay * qw + az * qx;
-  const float oz = aw * qz + ax * qy - ay * qx + az * qw;
-  const float ow = aw * qw - ax * qx - ay * qy - az * qz;
-  const float norm = maxf_(sqrtf(ox * ox + oy * oy + oz * oz + ow * ow), 1e-9f);
-
-  float* yb = Y + b;
-  auto out = [&](int ch, float val) { yb[(size_t)ch * Bs] = val; };
-  out(0, p2.x); out(1, p2.y); out(2, p2.z);
-  out(3, ox / norm); out(4, oy / norm); out(5, oz / norm); out(6, ow / norm);
-  out(7, lv2.x); out(8, lv2.y); out(9, lv2.z);
-  out(10, av2.x); out(11, av2.y); out(12, av2.z);
-  for (int j = 0; j < nq; ++j) {
+    // ---- _integrate: this body's joint ----
+    const int j = i - 1;
     const float lim = T[T_QDLIM + j];
-    float qdj = clipf_(qdl[j] + dt * qdd[j], -lim, lim);
-    float qj = ql[j] + dt * qdj;
+    float qdj = clipf_(in.qdi + dt * qdd, -lim, lim);
+    float qj = in.qi + dt * qdj;
     const float lo = T[T_QLO + j], hi = T[T_QHI + j];
     const bool at_lo = qj < lo, at_hi = qj > hi;
     qj = clipf_(qj, lo, hi);
     // a joint stop zeroes qd only when qd points outward
     if (at_lo && qdj < 0.0f) qdj = 0.0f;
     if (at_hi && qdj > 0.0f) qdj = 0.0f;
-    out(13 + j, qj);
-    out(13 + nq + j, qdj);
+    q_o[b * nq + j] = qj;
+    qd_o[b * nq + j] = qdj;
   }
 }
 
@@ -532,16 +747,36 @@ extern "C" int fused_step_max_sizes(int* max_nb, int* max_ns) {
   return 0;
 }
 
-// Launches on `stream` (PyTorch's current stream); does not synchronise.
-// Returns cudaGetLastError() after the launch (0 = success).
-extern "C" int fused_step_launch(const float* X, float* Y, const float* tables, int B,
-                                 int nb, int nq, int ns, int has_pay, int has_cs,
-                                 int has_extra, int root_free, int model_root_free,
+static int grid_for(int B, int lanes_log2) {
+  const long long threads = (long long)B << lanes_log2;
+  return (int)((threads + THREADS - 1) / THREADS);
+}
+
+// Both launch on `stream` (PyTorch's current stream) and do not synchronise.
+// They return cudaGetLastError() after the launch (0 = success).
+extern "C" int fused_step_launch(const float* pos, const float* quat, const float* lin_vel,
+                                 const float* ang_vel, const float* q, const float* qd,
+                                 const float* tau, const float* sph_force, const float* sph_x,
+                                 const float* payload, const float* com_shift,
+                                 const float* extra, float* pos_o, float* quat_o,
+                                 float* lin_vel_o, float* ang_vel_o, float* q_o, float* qd_o,
+                                 const float* tables, int B, int nb, int nq, int ns,
+                                 int lanes_log2, int root_free, int model_root_free,
                                  float dt, void* stream) {
   if (B <= 0) return 0;
-  const int grid = (B + THREADS - 1) / THREADS;
-  fused_step_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      X, Y, tables, B, nb, nq, ns, has_pay, has_cs, has_extra, root_free,
-      model_root_free, dt);
+  fused_step_kernel<<<grid_for(B, lanes_log2), THREADS, 0, (cudaStream_t)stream>>>(
+      pos, quat, lin_vel, ang_vel, q, qd, tau, sph_force, sph_x, payload, com_shift, extra,
+      pos_o, quat_o, lin_vel_o, ang_vel_o, q_o, qd_o, tables, B, nb, nq, ns, lanes_log2,
+      root_free, model_root_free, dt);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fk_spheres_launch(const float* pos, const float* quat, const float* lin_vel,
+                                 const float* ang_vel, const float* q, const float* qd,
+                                 float* sph_x, float* sph_v, const float* tables, int B,
+                                 int nb, int nq, int ns, int lanes_log2, void* stream) {
+  if (B <= 0) return 0;
+  fk_spheres_kernel<<<grid_for(B, lanes_log2), THREADS, 0, (cudaStream_t)stream>>>(
+      pos, quat, lin_vel, ang_vel, q, qd, sph_x, sph_v, tables, B, nb, nq, ns, lanes_log2);
   return (int)cudaGetLastError();
 }

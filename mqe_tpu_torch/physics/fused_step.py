@@ -1,12 +1,14 @@
-"""The fused dynamics substep (FK + ABA + integrate) as one CUDA kernel.
+"""The fused dynamics substep and the sphere FK as hand-written CUDA kernels.
 
 `step_actor_kernel` has the signature of `step_actor_pallas`
 (mqe_tpu/physics/pallas_step.py), the TPU kernel it replaces, and returns what
-`soa.step_actor` returns. For CUDA tensors it packs the inputs channel-major
-into one (C_in, B) float32 buffer, launches csrc/fused_step.cu (one thread per
-robot, 128 a block) on PyTorch's current stream and unpacks the (C_out, B)
-result. For CPU tensors it runs the plain version, `soa.step_actor`; on any
-other device it raises.
+`soa.step_actor` returns; `fk_spheres_kernel` returns what `soa.fk_spheres`
+returns. Both are entry points of csrc/fused_step.cu (one lane per body, see
+its header). For CUDA tensors a wrapper launches its kernel on PyTorch's
+current stream, reading the (B, k) state tensors in place and writing
+outputs it allocates; for CPU tensors it runs the plain version; on any other
+device it raises. Inputs are checked on every device, so the CPU tests hold
+the callers to what the kernels take: float32, contiguous, the model's shapes.
 """
 from __future__ import annotations
 
@@ -22,16 +24,6 @@ from mqe_tpu_torch.utils.build import load_library
 _c_int, _c_float, _c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
 
-def channel_count(model: BodyModel, has_pay: bool, has_cs: bool, has_extra: bool) -> int:
-    """Input channels of the kernel (pallas_step._channel_count)."""
-    nq, ns, nb = model.nq, len(model.sph_tags), model.nb
-    return 13 + 3 * nq + 6 * ns + int(has_pay) + 3 * int(has_cs) + 6 * nb * int(has_extra)
-
-
-def out_channel_count(model: BodyModel) -> int:
-    return 13 + 2 * model.nq
-
-
 @functools.cache
 def library():
     """The built kernel library with its argument types set (built at first use)."""
@@ -41,13 +33,19 @@ def library():
     lib.fused_step_table_size.restype = _c_int
     lib.fused_step_max_sizes.argtypes = [ctypes.POINTER(_c_int), ctypes.POINTER(_c_int)]
     lib.fused_step_max_sizes.restype = _c_int
-    lib.fused_step_launch.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr,                      # X, Y, tables
-        _c_int, _c_int, _c_int, _c_int,              # B, nb, nq, ns
-        _c_int, _c_int, _c_int, _c_int, _c_int,      # has_pay, has_cs, has_extra, root_free, model_root_free
-        _c_float, _c_ptr,                            # dt, stream
-    ]
+    lib.fused_step_launch.argtypes = (
+        [_c_ptr] * 12                                # pos .. extra (inputs)
+        + [_c_ptr] * 6                               # pos_o .. qd_o
+        + [_c_ptr]                                   # tables
+        + [_c_int] * 5                               # B, nb, nq, ns, lanes_log2
+        + [_c_int, _c_int, _c_float, _c_ptr]         # root_free, model_root_free, dt, stream
+    )
     lib.fused_step_launch.restype = _c_int
+    lib.fk_spheres_launch.argtypes = (
+        [_c_ptr] * 6 + [_c_ptr] * 2 + [_c_ptr]       # pos .. qd, sph_x, sph_v, tables
+        + [_c_int] * 5 + [_c_ptr]                    # B, nb, nq, ns, lanes_log2, stream
+    )
+    lib.fk_spheres_launch.restype = _c_int
     nb, ns = _c_int(), _c_int()
     lib.fused_step_max_sizes(ctypes.byref(nb), ctypes.byref(ns))
     if (lib.fused_step_table_size(), nb.value, ns.value) != (TABLE_SIZE, MAX_NB, MAX_NS):
@@ -73,70 +71,67 @@ def tables_for(model: BodyModel, device) -> torch.Tensor:
     return hit[1]
 
 
-def pack_inputs(model, pos, quat, lin_vel, ang_vel, q, qd, tau, sph_force, sph_x,
-                payload=None, com_shift=None, extra_wrench=None) -> torch.Tensor:
-    """Channel-major (C_in, B) float32 buffer, as pallas_step.py packs it."""
-    B = pos.shape[0]
-    nq, ns, nb = model.nq, len(model.sph_tags), model.nb
-    expect = {
+def lanes_log2(model: BodyModel) -> int:
+    """log2 of the lanes a robot gets: the smallest power of two >= nb."""
+    return (model.nb - 1).bit_length()
+
+
+def _check(fn: str, expect: dict) -> torch.device:
+    """Raise unless every given tensor is float32, contiguous, of its expected
+    shape and on the device of the first, a CPU or CUDA device."""
+    device = next(iter(expect.values()))[0].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for device {device}")
+    for name, (t, shape) in expect.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, the kernel takes float32")
+        if t.device != device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, pos on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+    return device
+
+
+def _state_shapes(model, pos, quat, lin_vel, ang_vel, q, qd):
+    if pos.dim() != 2:
+        raise ValueError(f"pos has shape {tuple(pos.shape)}, expected (B, 3)")
+    B, nq = pos.shape[0], model.nq
+    return B, {
         "pos": (pos, (B, 3)), "quat": (quat, (B, 4)), "lin_vel": (lin_vel, (B, 3)),
         "ang_vel": (ang_vel, (B, 3)), "q": (q, (B, nq)), "qd": (qd, (B, nq)),
-        "tau": (tau, (B, nq)), "sph_force": (sph_force, (B, ns, 3)),
-        "sph_x": (sph_x, (B, ns, 3)),
     }
-    if payload is not None:
-        expect["payload"] = (payload, (B,))
-    if com_shift is not None:
-        expect["com_shift"] = (com_shift, (B, 3))
-    if extra_wrench is not None:
-        expect["extra_wrench"] = (extra_wrench, (B, nb, 6))
-    for name, (t, shape) in expect.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32")
-        if t.device != pos.device:
-            raise ValueError(f"{name} is on {t.device}, pos on {pos.device}")
-    chans = [
-        pos.T, quat.T, lin_vel.T, ang_vel.T, q.T, qd.T, tau.T,
-        sph_x.reshape(B, ns * 3).T, sph_force.reshape(B, ns * 3).T,
-    ]
-    if payload is not None:
-        chans.append(payload[None, :])
-    if com_shift is not None:
-        chans.append(com_shift.T)
-    if extra_wrench is not None:
-        chans.append(extra_wrench.reshape(B, nb * 6).T)
-    return torch.cat(chans, dim=0).contiguous()
 
 
-def launch(model: BodyModel, X: torch.Tensor, has_pay: bool, has_cs: bool,
-           has_extra: bool, dt: float, root_free: bool) -> torch.Tensor:
-    """Run the kernel on a packed (C_in, B) buffer; returns (C_out, B)."""
-    C, B = X.shape
-    if X.device.type != "cuda":
-        raise ValueError(f"the kernel runs on CUDA tensors, got {X.device}")
-    if X.dtype != torch.float32 or not X.is_contiguous():
-        raise ValueError("X must be a contiguous float32 (C_in, B) tensor")
-    if C != channel_count(model, has_pay, has_cs, has_extra):
-        raise ValueError(f"X has {C} channels, expected "
-                         f"{channel_count(model, has_pay, has_cs, has_extra)}")
-    if B >= 2**31 // max(C, 1):
-        raise ValueError(f"batch {B} too large for 32-bit launch arithmetic")
-    lib = library().lib
-    table = tables_for(model, X.device)
-    Y = torch.empty((out_channel_count(model), B), dtype=torch.float32, device=X.device)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.fused_step_launch(
-        X.data_ptr(), Y.data_ptr(), table.data_ptr(),
-        B, model.nb, model.nq, len(model.sph_tags),
-        int(has_pay), int(has_cs), int(has_extra), int(root_free), int(model.root_free),
-        float(dt), stream,
-    )
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(rc: int, fn: str):
     if rc != 0:
-        raise RuntimeError(f"fused_step kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{fn} kernel launch failed: cudaError {rc}")
+
+
+def launch_step(model, pos, quat, lin_vel, ang_vel, q, qd, tau, sph_force, sph_x,
+                payload, com_shift, extra_wrench, out, dt, root_free):
+    """Launch the step kernel on checked CUDA tensors into `out`, the six
+    output tensors; counts the launch."""
+    B, ns = pos.shape[0], len(model.sph_tags)
+    rc = library().lib.fused_step_launch(
+        pos.data_ptr(), quat.data_ptr(), lin_vel.data_ptr(), ang_vel.data_ptr(),
+        q.data_ptr(), qd.data_ptr(), tau.data_ptr(), sph_force.data_ptr(), sph_x.data_ptr(),
+        _ptr(payload), _ptr(com_shift), _ptr(extra_wrench),
+        *(t.data_ptr() for t in out),
+        tables_for(model, pos.device).data_ptr(),
+        B, model.nb, model.nq, ns, lanes_log2(model),
+        int(root_free), int(model.root_free), float(dt),
+        torch.cuda.current_stream(pos.device).cuda_stream,
+    )
+    _raise_on(rc, "fused_step")
     step_actor_kernel.launches += 1
-    return Y
 
 
 def step_actor_kernel(
@@ -153,28 +148,58 @@ def step_actor_kernel(
 
     Returns the six new state tensors (B, k), as `soa.step_actor` does.
     """
-    if pos.device.type == "cpu":
+    B, expect = _state_shapes(model, pos, quat, lin_vel, ang_vel, q, qd)
+    ns, nq = len(model.sph_tags), model.nq
+    expect.update({
+        "tau": (tau, (B, nq)), "sph_force": (sph_force, (B, ns, 3)),
+        "sph_x": (sph_x, (B, ns, 3)), "payload": (payload, (B,)),
+        "com_shift": (com_shift, (B, 3)), "extra_wrench": (extra_wrench, (B, model.nb, 6)),
+    })
+    device = _check("step_actor_kernel", expect)
+    if device.type == "cpu":
         return soa.step_actor(
             model, pos, quat, lin_vel, ang_vel, q, qd, tau, sph_force, sph_x,
             payload=payload, com_shift=com_shift, extra_wrench=extra_wrench,
             dt=dt, root_free=root_free,
         )
-    if pos.device.type != "cuda":
-        raise ValueError(f"step_actor_kernel: no kernel for device {pos.device}")
     if root_free is None:
         root_free = model.root_free
-    B, nq = pos.shape[0], model.nq
-    X = pack_inputs(model, pos, quat, lin_vel, ang_vel, q, qd, tau, sph_force, sph_x,
-                    payload, com_shift, extra_wrench)
-    Y = launch(model, X, payload is not None, com_shift is not None,
-               extra_wrench is not None, dt, root_free)
-    out = [Y[0:3].T, Y[3:7].T, Y[7:10].T, Y[10:13].T]
-    if nq:
-        out += [Y[13:13 + nq].T, Y[13 + nq:13 + 2 * nq].T]
-    else:
-        empty = pos.new_zeros((B, 0))
-        out += [empty, empty]
-    return tuple(out)
+    out = tuple(torch.empty((B, k), dtype=torch.float32, device=device)
+                for k in (3, 4, 3, 3, nq, nq))
+    launch_step(model, pos, quat, lin_vel, ang_vel, q, qd, tau, sph_force, sph_x,
+                payload, com_shift, extra_wrench, out, dt, root_free)
+    return out
 
 
 step_actor_kernel.launches = 0  # kernel launches since the last reset to 0
+
+
+def launch_fk(model, pos, quat, lin_vel, ang_vel, q, qd, sph_x, sph_v):
+    """Launch the sphere-FK kernel on checked CUDA tensors into sph_x, sph_v;
+    counts the launch."""
+    rc = library().lib.fk_spheres_launch(
+        pos.data_ptr(), quat.data_ptr(), lin_vel.data_ptr(), ang_vel.data_ptr(),
+        q.data_ptr(), qd.data_ptr(), sph_x.data_ptr(), sph_v.data_ptr(),
+        tables_for(model, pos.device).data_ptr(),
+        pos.shape[0], model.nb, model.nq, len(model.sph_tags), lanes_log2(model),
+        torch.cuda.current_stream(pos.device).cuda_stream,
+    )
+    _raise_on(rc, "fk_spheres")
+    fk_spheres_kernel.launches += 1
+
+
+def fk_spheres_kernel(model: BodyModel, pos, quat, lin_vel, ang_vel, q, qd):
+    """World positions and velocities of the collision spheres, (B, ns, 3)
+    each, as `soa.fk_spheres` returns them, for a flat (B, k) batch."""
+    B, expect = _state_shapes(model, pos, quat, lin_vel, ang_vel, q, qd)
+    device = _check("fk_spheres_kernel", expect)
+    if device.type == "cpu":
+        return soa.fk_spheres(model, pos, quat, lin_vel, ang_vel, q, qd)
+    ns = len(model.sph_tags)
+    sph_x = torch.empty((B, ns, 3), dtype=torch.float32, device=device)
+    sph_v = torch.empty((B, ns, 3), dtype=torch.float32, device=device)
+    launch_fk(model, pos, quat, lin_vel, ang_vel, q, qd, sph_x, sph_v)
+    return sph_x, sph_v
+
+
+fk_spheres_kernel.launches = 0  # kernel launches since the last reset to 0

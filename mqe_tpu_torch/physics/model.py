@@ -176,13 +176,16 @@ MAX_NB = 16  # bodies a model may have (compile-time bound of the kernel)
 MAX_NS = 64  # collision spheres a model may have
 
 # float32 offsets of each field in the table; per-body fields are indexed by
-# body, per-joint fields by joint (= body - 1), per-sphere fields by sphere
+# body, per-joint fields by joint (= body - 1), per-sphere fields by sphere.
+# The last three are the kernel's schedule over the tree (`tree_schedule`):
+# each body's depth, and its children (row of MAX_NB, -1 padded).
 TABLE_FIELDS = (
     ("parent", MAX_NB), ("joint_type", MAX_NB), ("joint_rot", MAX_NB * 9),
     ("joint_pos", MAX_NB * 3), ("joint_axis", MAX_NB * 3), ("mass", MAX_NB),
     ("com", MAX_NB * 3), ("inertia", MAX_NB * 9), ("spatial_inertia", MAX_NB * 36),
     ("joint_damping", MAX_NB), ("q_lower", MAX_NB), ("q_upper", MAX_NB),
     ("qd_limit", MAX_NB), ("sph_body", MAX_NS), ("sph_pos", MAX_NS * 3),
+    ("level", MAX_NB), ("num_children", MAX_NB), ("children", MAX_NB * MAX_NB),
 )
 TABLE_OFFSETS = {}
 _off = 0
@@ -191,6 +194,27 @@ for _name, _n in TABLE_FIELDS:
     _off += _n
 TABLE_SIZE = _off
 del _off, _name, _n
+
+
+def tree_schedule(model: BodyModel):
+    """The order in which the kernel walks the tree, one lane per body.
+
+    Returns `level` (nb,) int, the depth of each body (root 0), and
+    `children`, a list per body of its children in descending index: the
+    order in which `soa._aba` (`for i = nb-1 .. 1`) adds a child's
+    articulated inertia to its parent, which the kernel keeps.
+    """
+    nb = model.nb
+    level = np.zeros(nb, dtype=np.int64)
+    children = [[] for _ in range(nb)]
+    for i in range(1, nb):
+        par = int(model.parent[i])
+        if not 0 <= par < i:
+            raise ValueError(f"model {model.name!r}: body {i} has parent {par}; "
+                             "bodies must follow their parents")
+        level[i] = level[par] + 1
+        children[par].insert(0, i)
+    return level, children
 
 
 def model_tables(model: BodyModel) -> np.ndarray:
@@ -213,6 +237,11 @@ def model_tables(model: BodyModel) -> np.ndarray:
         "q_upper": model.q_upper[:nq], "qd_limit": model.qd_limit[:nq],
         "sph_body": model.sph_body, "sph_pos": model.sph_pos,
     }
+    level, children = tree_schedule(model)
+    child_rows = np.full((nb, MAX_NB), -1.0)
+    for i, ch in enumerate(children):
+        child_rows[i, :len(ch)] = ch
+    values.update(level=level, num_children=[len(ch) for ch in children], children=child_rows)
     out = np.zeros(TABLE_SIZE, dtype=np.float32)
     for name, _ in TABLE_FIELDS:
         flat = np.asarray(values[name], dtype=np.float64).reshape(-1)

@@ -2,11 +2,12 @@
 
 PyTorch counterpart of `mqe_tpu/physics/scene.py::substep_batch` for scenes
 without NPCs (the go1gate slice): forward kinematics of the collision spheres
-(plain, physics/soa.py) -> contact forces against the ground, the env's wall
-boxes and the other robots' coarse spheres (physics/contact.py, batched over
-the env axis where the JAX package vmaps) -> the dynamics substep
-(physics/fused_step.py: the CUDA kernel for CUDA tensors, the plain version
-for CPU tensors).
+-> contact forces against the ground, the env's wall boxes and the other
+robots' coarse spheres (physics/contact.py, batched over the env axis where
+the JAX package vmaps) -> the dynamics substep. The sphere FK and the
+dynamics substep are the two entry points of physics/fused_step.py: CUDA
+kernels for CUDA tensors, their plain versions (physics/soa.py) for CPU
+tensors.
 
 Actor layout: agents first, then NPCs; per-agent tensors carry (E, A, ...).
 """
@@ -18,8 +19,7 @@ import numpy as np
 import torch
 
 from mqe_tpu_torch.physics import contact as C
-from mqe_tpu_torch.physics import soa
-from mqe_tpu_torch.physics.fused_step import step_actor_kernel
+from mqe_tpu_torch.physics.fused_step import fk_spheres_kernel, step_actor_kernel
 from mqe_tpu_torch.physics.model import BodyModel
 
 
@@ -129,7 +129,7 @@ def substep_batch(scene: SceneModel, terrain: Terrain, state: PhysState, tau,
         return x.reshape((E * A,) + x.shape[2:])
 
     # ---- agent kinematics + spheres (SoA over E*A robots) ----
-    sph_x_f, sph_v_f = soa.fk_spheres(
+    sph_x_f, sph_v_f = fk_spheres_kernel(
         robot, flat(ag.pos), flat(ag.quat), flat(ag.lin_vel), flat(ag.ang_vel),
         flat(ag.q), flat(ag.qd),
     )

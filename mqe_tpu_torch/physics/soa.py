@@ -6,10 +6,10 @@ constants stay python floats, and the static body tree is unrolled in Python
 into elementwise tensor ops (`jnp.where/clip/maximum/sqrt` map one to one to
 their torch counterparts).
 
-Its role in the port: `step_entries`/`step_actor` are the reference of the
-hand-written CUDA kernel (csrc/fused_step.cu, wrapper physics/fused_step.py),
-and what a CPU tensor runs through. `fk_spheres`/`fk_full` feed the contact
-stage of the scene.
+Its role in the port: `step_actor` and `fk_spheres` are the references of
+the two hand-written CUDA kernels (csrc/fused_step.cu, wrappers in
+physics/fused_step.py), and what a CPU tensor runs through. `fk_spheres`
+and `fk_full` feed the contact stage of the scene.
 
 Conventions: quats xyzw, body 0 = floating base, motion vectors (angular,
 linear), world-frame external wrenches about body origins.
@@ -608,7 +608,7 @@ def step_entries(
     """Entry-level dynamics+integration core: contact/gravity wrenches ->
     ABA -> semi-implicit Euler, all as elementwise ops on entries of ANY
     broadcastable shape. csrc/fused_step.cu computes the same chain, one
-    robot per thread. Returns entry tuples (pos, quat, lin_vel, ang_vel, q, qd).
+    lane per body. Returns entry tuples (pos, quat, lin_vel, ang_vel, q, qd).
 
     Two switches on purpose: `_aba` picks the base solve from
     `model.root_free`, the world accelerations are zeroed from the

@@ -14,6 +14,8 @@ import torch
 from mqe_tpu.physics import contact as jc
 from mqe_tpu_torch.physics import contact as tc
 
+torch.set_num_threads(1)
+
 P_J = jc.ContactParams(kn=4000.0, hc_damping=3.0, v_slip=0.05, f_max=500.0)
 P_T = tc.ContactParams(kn=4000.0, hc_damping=3.0, v_slip=0.05, f_max=500.0)
 F_TOL = 5e-4

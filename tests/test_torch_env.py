@@ -1,59 +1,72 @@
 """One go1gate control step of the port (mqe_tpu_torch) against the JAX package.
 
 Both start from the same JAX-produced state and take the same actions; the
-port runs on the CPU, where its dynamics substep is the plain version of the
-CUDA kernel. The JAX step is jitted once for the module (about a minute of
-CPU compile); each case then costs a few seconds.
+port runs on the CPU, where its kernels are their plain versions. The JAX side
+is the record that tools/make_torch_goldens.py writes to
+tests/goldens/torch_go1gate_step.npz: two start states (post-reset, and in
+contact after 25 steps), the actions, and JAX's step from each. The JAX
+package is the frozen reference, so its step is recorded once rather than
+jitted in every run (about a minute of CPU compile); the slow
+`test_go1gate_step_matches_live_jax` makes the same comparison against a live
+JAX run.
 
 Tolerances on the agent state are the per-step bounds that
 tests/test_soa_episode.py holds between two physics paths of the JAX package
 (`TOLS`); the derived quantities (observations, reward, controller state) are
 held to the same scale.
 """
-import jax
+import importlib.util
+import os
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
-from mqe_tpu.envs.registry import make_mqe_env as make_jax_env
 from mqe_tpu_torch.envs.registry import make_mqe_env as make_torch_env
 from mqe_tpu_torch.utils.convert import env_state_from_numpy
 
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_go1gate_step.npz")
+CASES = ("post-reset", "in-contact")
 NUM_ENVS = 2
 # per-step bounds of tests/test_soa_episode.py::TOLS
 TOLS = dict(pos=1e-6, quat=1e-5, lin_vel=3e-4, ang_vel=5e-3, q=2e-4, qd=2e-2)
 # observation, reward, and carried controller state
 OTHER_TOLS = dict(obs=1e-4, reward=1e-4, gait_indices=1e-6, clock_inputs=1e-5,
                   loco_obs=1e-3, last_loco_action=1e-3, err_hist=2e-2, vel_int=1e-5)
-WARM_STEPS = 25  # JAX steps before the compared step: feet on the ground
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    wrap, _ = make_jax_env("go1gate", num_envs=NUM_ENVS, seed=0)
-    ts, _ = wrap.reset(jax.random.PRNGKey(0))
-    rng = np.random.RandomState(3)
-    acts = rng.uniform(-1, 1, (WARM_STEPS + 1, NUM_ENVS, wrap.num_agents, 3)).astype(np.float32)
-    key = jax.random.PRNGKey(1)
-    states = [ts]
-    for t in range(WARM_STEPS):
-        key, k = jax.random.split(key)
-        ts = wrap.step(ts, acts[t], k)[0]
-        states.append(ts)
-    return wrap, states, acts
+def _tree(rec, prefix):
+    """The pytree recorded under "<prefix>/...": namespaces, a dict under "extra"."""
+    root = {}
+    for key, arr in rec.items():
+        if key.startswith(prefix + "/"):
+            *path, leaf = key[len(prefix) + 1:].split("/")
+            node = root
+            for name in path:
+                node = node.setdefault(name, {})
+            node[leaf] = arr
+
+    def build(node, name):
+        if not isinstance(node, dict):
+            return node
+        kids = {k: build(v, k) for k, v in node.items()}
+        return kids if name == "extra" else SimpleNamespace(**kids)
+
+    return build(root, "")
 
 
-@pytest.mark.parametrize("start", [0, WARM_STEPS], ids=["post-reset", "in-contact"])
-def test_go1gate_step_matches_jax(jax_run, start):
-    jwrap, states, acts = jax_run
-    ts_j = states[start]
-    out_j = jwrap.step(ts_j, acts[start], jax.random.PRNGKey(7))
-    ts1_j, obs_j, rew_j, done_j, _ = jax.tree.map(np.asarray, out_j)
+def _step_matches(rec, case):
+    ts1_j = _tree(rec, f"{case}/out")
+    obs_j, rew_j, done_j = (rec[f"{case}/{k}"] for k in ("obs", "reward", "done"))
     assert not done_j.any(), "an env reset in the compared step"
 
     twrap, _ = make_torch_env("go1gate", num_envs=NUM_ENVS, seed=0, device="cpu")
-    ts_t = env_state_from_numpy(jax.tree.map(np.asarray, ts_j), device="cpu")
-    ts1_t, obs_t, rew_t, done_t, _ = twrap.step(ts_t, torch.as_tensor(acts[start]))
+    ts_t = env_state_from_numpy(_tree(rec, f"{case}/start"), device="cpu")
+    ts1_t, obs_t, rew_t, done_t, _ = twrap.step(ts_t, torch.as_tensor(rec[f"{case}/actions"]))
 
     assert not done_t.any()
     ag_j, ag_t = ts1_j.env.phys.agents, ts1_t.env.phys.agents
@@ -68,9 +81,35 @@ def test_go1gate_step_matches_jax(jax_run, start):
         assert a.shape == tuple(b.shape), name
         diffs[name] = np.abs(a - b.numpy()).max()
         assert diffs[name] <= tol, f"{name}: max diff {diffs[name]:.3e} > {tol:.0e}"
-    print(f"{start}: " + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))  # shown with -s
+    print(f"{case}: " + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))  # shown with -s
     for k in ts1_j.extra:
         np.testing.assert_allclose(ts1_t.extra[k].numpy(), ts1_j.extra[k], atol=1e-5, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(GOLDEN) as f:
+        return dict(f)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_go1gate_step_matches_jax(golden, case):
+    _step_matches(golden, case)
+
+
+@pytest.fixture(scope="module")
+def live_record():
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_goldens", os.path.join(REPO, "tools", "make_torch_goldens.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool.record()
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", CASES)
+def test_go1gate_step_matches_live_jax(live_record, case):
+    _step_matches(live_record, case)
 
 
 def test_randomization_options_take_the_given_draws():

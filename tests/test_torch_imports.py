@@ -7,7 +7,11 @@ import pkgutil
 import subprocess
 import sys
 
+import torch
+
 import mqe_tpu_torch
+
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "mqe_tpu")

@@ -18,6 +18,8 @@ from mqe_tpu_torch.control import locomotion as tl
 from mqe_tpu_torch.control import nets as tn
 from mqe_tpu_torch.utils.convert import mlp_from_numpy
 
+torch.set_num_threads(1)
+
 RNG = np.random.RandomState(0)
 DEFAULT_Q = np.array([-0.1, 0.8, -1.5, 0.1, 0.8, -1.5, -0.1, 1.0, -1.5, 0.1, 1.0, -1.5],
                      dtype=np.float32)

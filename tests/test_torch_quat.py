@@ -13,6 +13,8 @@ import torch
 from mqe_tpu.ops import quat as jq
 from mqe_tpu_torch.ops import quat as tq
 
+torch.set_num_threads(1)
+
 N = 64
 
 

@@ -23,6 +23,8 @@ from mqe_tpu_torch.physics import scene as TS
 from mqe_tpu_torch.terrain import BarrierTrackBuilder as TorchTrack
 from mqe_tpu_torch.terrain.perlin import fractal_noise_2d as torch_noise
 
+torch.set_num_threads(1)
+
 E = 2
 NAMES = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")
 TOLS = (1e-6, 1e-6, 1e-5, 1e-5, 1e-6, 1e-4)

@@ -5,8 +5,9 @@
 the seesaw with a welded base), at its six tolerances. The JAX side runs op
 by op (no jit), which keeps the file to seconds.
 
-The `cuda` cases hold the CUDA kernel against the plain version on the same
-inputs and run only on a card. The machine with the card has no JAX, so JAX
+The `cuda` cases hold the CUDA kernels against their plain versions on the
+same inputs (the step kernel on the cases above, the sphere-FK kernel on the
+inputs of `test_fk_matches_jax` at its bound) and run only on a card. The machine with the card has no JAX, so JAX
 is imported inside the JAX cases only; there they run with
 `python -m pytest --noconftest tests/test_torch_soa.py -m cuda`.
 """
@@ -17,6 +18,8 @@ import torch
 from mqe_tpu_torch.physics import fused_step
 from mqe_tpu_torch.physics import soa
 from mqe_tpu_torch.physics.model import go1_model, load_model
+
+torch.set_num_threads(1)
 
 NAMES = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")
 TOLS = (1e-6, 1e-6, 1e-5, 1e-5, 1e-6, 1e-4)  # tests/test_pallas_step.py
@@ -141,10 +144,8 @@ def test_kernel_wrapper_on_cpu_runs_the_plain_version():
     assert fused_step.step_actor_kernel.launches == before
     for a, b in zip(ref, out):
         assert torch.equal(a, b)
-    X = fused_step.pack_inputs(tm, *targs, **tkw)
-    assert tuple(X.shape) == (fused_step.channel_count(tm, True, True, False), 100) == (293, 100)
-    with pytest.raises(ValueError):
-        fused_step.launch(tm, X, True, True, False, 0.0025, True)
+    # a robot gets the smallest power of two of lanes that holds its bodies
+    assert [fused_step.lanes_log2(_torch_model(n)) for n in ("go1", "seesaw", "ball")] == [4, 1, 0]
 
 
 @pytest.mark.cuda
@@ -163,3 +164,26 @@ def test_kernel_matches_plain_on_card(case_id):
         if a.numel():
             diff = float((a - b).abs().max())
             assert diff <= tol, f"{n}: max diff {diff:.3e} > {tol:.0e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B", [("go1", 16), ("go1", 8192), ("seesaw", 37), ("ball", 37)])
+def test_fk_kernel_matches_plain_on_card(name, B):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    m = _torch_model(name)
+    rng = np.random.RandomState(5)   # the draws of test_fk_matches_jax
+    arrs = [rng.randn(B, 3) * 0.1, rng.randn(B, 4) * 0.05 + np.array([0, 0, 0, 1.0]),
+            rng.randn(B, 3) * 0.3, rng.randn(B, 3) * 0.3, rng.randn(B, m.nq) * 0.2,
+            rng.randn(B, m.nq) * 0.5]
+    arrs[1] /= np.linalg.norm(arrs[1], axis=1, keepdims=True)
+    args = [torch.as_tensor(a.astype(np.float32), device="cuda") for a in arrs]
+    ref = soa.fk_spheres(m, *args)
+    before = fused_step.fk_spheres_kernel.launches
+    out = fused_step.fk_spheres_kernel(m, *args)
+    torch.cuda.synchronize()
+    assert fused_step.fk_spheres_kernel.launches == before + 1
+    for a, b in zip(ref, out):
+        assert a.shape == b.shape
+        diff = float((a - b).abs().max())
+        assert diff <= 1e-6, f"max diff {diff:.3e} > 1e-06"

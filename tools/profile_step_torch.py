@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mqe_tpu_torch.envs import go1_env  # noqa: E402
 from mqe_tpu_torch.envs.registry import make_mqe_env  # noqa: E402
-from mqe_tpu_torch.physics import scene, soa  # noqa: E402
+from mqe_tpu_torch.physics import scene  # noqa: E402
 
 ACC = defaultdict(float)
 
@@ -92,9 +92,9 @@ def main():
         "locomotion (trot + body policy)": (go1_env.Go1Env, "_locomotion_action"),
         "actuator net + torques": (go1_env.Go1Env, "_torques"),
         "substep_batch (all)": (scene, "substep_batch"),
-        "fk_spheres (plain)": (soa, "fk_spheres"),
+        "sphere FK kernel (wrapper + launch)": (scene, "fk_spheres_kernel"),
         "ground + wall-box contact": (scene, "_terrain_and_box_force"),
-        "dynamics kernel (pack, launch, unpack)": (scene, "step_actor_kernel"),
+        "dynamics kernel (wrapper + launch)": (scene, "step_actor_kernel"),
         "termination": (go1_env.Go1Env, "_termination"),
         "reset draw + masked reset + obs": (go1_env.Go1Env, "_step_finish"),
     }
@@ -108,8 +108,8 @@ def main():
     synced = (time.perf_counter() - t0) / args.steps
     ms = {k: v / args.steps * 1e3 for k, v in ACC.items()}
     ms["robot-robot contact + reshapes (rest of substep)"] = ms["substep_batch (all)"] - sum(
-        ms[k] for k in ("fk_spheres (plain)", "ground + wall-box contact",
-                        "dynamics kernel (pack, launch, unpack)"))
+        ms[k] for k in ("sphere FK kernel (wrapper + launch)", "ground + wall-box contact",
+                        "dynamics kernel (wrapper + launch)"))
     ms["rest of the step"] = synced * 1e3 - sum(
         ms[k] for k in ("locomotion (trot + body policy)", "actuator net + torques",
                         "substep_batch (all)", "termination", "reset draw + masked reset + obs"))
