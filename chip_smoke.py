@@ -4,23 +4,34 @@
 
 Phases, each printing one line with its elapsed seconds:
   1. device  - the card's name and power limit;
-  2. build   - nvcc builds csrc/fused_step.cu (both entry points) into
+  2. build   - nvcc builds csrc/fused_step.cu (all three entry points) into
                build/mqe_tpu_torch/, with ptxas' registers, stack and spills;
   3. kernel  - the CUDA substep kernel against its plain PyTorch version
-               (physics/soa.py::step_actor) on the card, four cases, at the
+               (physics/soa.py::step_actor) on the card, six cases, at the
                tolerances of tests/test_pallas_step.py; then its device time
-               per launch at the slice's shape (torch.profiler) beside the
-               plain version's time and the bound of the card;
+               per launch at the shapes of the slices (torch.profiler): the
+               robots' launch (B = 8192) and the NPCs' (B = 4096 boxes, and
+               welded seesaws), each beside the plain version's time and the
+               bound of the card;
   4. fk      - the sphere-FK kernel against soa.fk_spheres at the slice's
                shape (and two NPC models), at the tolerance of
                tests/test_torch_soa.py::test_fk_matches_jax; its time and
                bound likewise;
-  5. check   - one go1gate control step at 2 envs on the card (kernels) and
-               on the CPU (plain versions) from the same state, compared;
-  6. slice   - go1gate at 4096 envs through make_mqe_env -> reset -> step:
-               1 warm step and 20 timed steps, each kernel launched 8 times
-               a step.
-Then the kernels' JSON line, the card's name and power limit, and the result
+  5. fk_full - the full-FK kernel against soa.fk_full for the box and the
+               seesaw at B = 4096, the NPC shapes of the slices, at the same
+               tolerance; its time and bound for both;
+  6. check   - one control step at 2 envs of go1gate, go1plane, go1pushbox
+               and go1seesaw on the card (kernels) and on the CPU (plain
+               versions) from the same state, compared, NPCs included;
+  7. slice   - go1gate, then go1pushbox and go1seesaw, at 4096 envs through
+               make_mqe_env -> reset -> step: 1 warm step and 20 timed steps
+               each. Every kernel's count is set to 0 just before a task's
+               run and read just after: go1gate launches the step kernel and
+               the sphere FK 8 times a step; an NPC task launches the step
+               kernel 16 times (robots, then NPCs), the sphere FK 8 and the
+               full FK 8.
+Then the kernels' JSON line (`launches`: the sum over the three runs, by task
+under `launches_by_task`), the card's name and power limit, and the result
 line `{"ok": true, "device": {...}}`. Any failed phase raises (exit code 1);
 with no CUDA device it exits with code 2 and prints no result.
 """
@@ -151,6 +162,33 @@ def bound(tensors_in, tensors_out, ops):
             nb, bytes_ms, ops_ms)
 
 
+def timing(phase, label, launch, kernel, call, plain, ins, outs, smi):
+    """Time one kernel at one shape: its device time per launch into
+    preallocated outputs (`launch`), the wrapper's time per call (checks,
+    allocation, launch), the plain version's, and the card's bound for the
+    work. Inputs stay in L2 between launches, as they do on the main path,
+    where the stage before just wrote them. Returns the JSON fields."""
+    ms = device_ms(launch, kernel, 200)
+    wrapper_ms = cuda_ms(call, 50)
+    cuda_ms(plain, 1)
+    plain_ms = cuda_ms(plain, 3)
+    b_ms, b_by, nb, bytes_ms, ops_ms = bound(ins, outs, count_ops(plain))
+    say(phase, f"{label}: kernel {ms:.4f} ms/launch on the device (wrapper {wrapper_ms:.4f} "
+        f"ms/call), plain {plain_ms:.3f} ms/call; bound {b_ms:.4f} ms by {b_by} "
+        f"(bytes {nb} -> {bytes_ms:.4f} ms, ops -> {ops_ms:.4f} ms); on {smi}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def npc_step_inputs(name, root_free, B, seed):
+    """An NPC launch as the scene makes it: the model loaded with the
+    scene's root flag, a reaction wrench, no payload or com shift."""
+    m = load_model(name, root_free=root_free)
+    args, _, _ = rand_state(m, B, seed, z=1.0, q_sd=0.1, qd_sd=0.3, tau_sd=0.0, f_sd=2.0)
+    wrench = torch.as_tensor(
+        np.random.RandomState(seed + 1).randn(B, m.nb, 6).astype(np.float32) * 1.5, device="cuda")
+    return m, args, wrench
+
+
 def phase_kernel(smi):
     go1 = go1_model()
     # case 1: the slice's shape, go1 at B = 8192 with payload and com shift
@@ -180,26 +218,42 @@ def phase_kernel(smi):
                 soa.step_actor(m, *a3, extra_wrench=w3, root_free=root_free),
                 fused_step.step_actor_kernel(m, *a3, extra_wrench=w3, root_free=root_free))
 
-    # time at the slice's shape: the kernel's device time into preallocated
-    # outputs, the wrapper's time per call (checks, allocation, launch), and
-    # the plain version; inputs stay in L2 between launches (10.8 MB < 50 MB),
-    # as they do on the main path, where the contact stage just wrote them
-    launch = lambda: fused_step.launch_step(go1, *args, payload, cshift, None, out, 0.0025, True)
-    ms = device_ms(launch, "fused_step_kernel", 200)
-    wrapper_ms = cuda_ms(
-        lambda: fused_step.step_actor_kernel(go1, *args, payload=payload, com_shift=cshift), 50)
-    plain = lambda: soa.step_actor(go1, *args, payload=payload, com_shift=cshift)
-    cuda_ms(plain, 1)
-    plain_ms = cuda_ms(plain, 3)
-    b_ms, b_by, nb, bytes_ms, ops_ms = bound((*args, payload, cshift), out, count_ops(plain))
-    say("kernel", f"B={B}: kernel {ms:.4f} ms/launch on the device (wrapper {wrapper_ms:.4f} "
-        f"ms/call), plain {plain_ms:.3f} ms/call; bound {b_ms:.4f} ms by {b_by} "
-        f"(bytes {nb} -> {bytes_ms:.4f} ms, ops -> {ops_ms:.4f} ms); on {smi}")
-    return dict(
-        name="fused_step", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
-        replaces="mqe_tpu/physics/pallas_step.py:141", max_abs_err=max_err, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    # cases 5-6: the NPC launches of the slices at their shape, B = 4096: the
+    # free box, and the seesaw welded in both flags (model and argument)
+    npc_cases = {name: npc_step_inputs(name, rf, 4096, seed=21)
+                 for name, rf in (("box", True), ("seesaw", False))}
+    for name, (m, a, w) in npc_cases.items():
+        rf = m.root_free
+        max_err = max(max_err, compare(
+            "kernel", f"{name} B=4096 NPC launch (root_free={rf})",
+            soa.step_actor(m, *a, extra_wrench=w, root_free=rf),
+            fused_step.step_actor_kernel(m, *a, extra_wrench=w, root_free=rf)))
+
+    # time at the slices' shapes
+    entry = dict(
+        name="fused_step_kernel", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
+        replaces="mqe_tpu/physics/pallas_step.py:141", max_abs_err=max_err, library_ms=None,
+        **timing("kernel", f"go1 B={B}",
+                 lambda: fused_step.launch_step(go1, *args, payload, cshift, None, out, 0.0025,
+                                                True),
+                 "fused_step_kernel",
+                 lambda: fused_step.step_actor_kernel(go1, *args, payload=payload,
+                                                      com_shift=cshift),
+                 lambda: soa.step_actor(go1, *args, payload=payload, com_shift=cshift),
+                 (*args, payload, cshift), out, smi),
     )
+    entry["npc"] = {}
+    for name, (m, a, w) in npc_cases.items():
+        rf = m.root_free
+        nout = fused_step.step_actor_kernel(m, *a, extra_wrench=w, root_free=rf)
+        entry["npc"][name] = timing(
+            "kernel", f"{name} B=4096 NPC launch",
+            lambda: fused_step.launch_step(m, *a, None, None, w, nout, 0.0025, rf),
+            "fused_step_kernel",
+            lambda: fused_step.step_actor_kernel(m, *a, extra_wrench=w, root_free=rf),
+            lambda: soa.step_actor(m, *a, extra_wrench=w, root_free=rf),
+            (*a, w), nout, smi)
+    return entry
 
 
 def fk_state(m, B, seed):
@@ -227,67 +281,93 @@ def phase_fk(smi):
         compare("fk", f"{name} B=37", soa.fk_spheres(m, *a), fused_step.fk_spheres_kernel(m, *a),
                 names, tols)
 
-    launch = lambda: fused_step.launch_fk(go1, *args, *out)
-    ms = device_ms(launch, "fk_spheres_kernel", 200)
-    wrapper_ms = cuda_ms(lambda: fused_step.fk_spheres_kernel(go1, *args), 50)
-    plain = lambda: soa.fk_spheres(go1, *args)
-    cuda_ms(plain, 1)
-    plain_ms = cuda_ms(plain, 3)
-    b_ms, b_by, nb, bytes_ms, ops_ms = bound(args, out, count_ops(plain))
-    say("fk", f"B={B}: kernel {ms:.4f} ms/launch on the device (wrapper {wrapper_ms:.4f} "
-        f"ms/call), plain {plain_ms:.3f} ms/call; bound {b_ms:.4f} ms by {b_by} "
-        f"(bytes {nb} -> {bytes_ms:.4f} ms, ops -> {ops_ms:.4f} ms); on {smi}")
     return dict(
-        name="fk_spheres", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
-        replaces="mqe_tpu/physics/soa.py:546",
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None,
+        name="fk_spheres_kernel", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
+        replaces="mqe_tpu/physics/soa.py:546", max_abs_err=max_err, library_ms=None,
+        **timing("fk", f"go1 B={B}", lambda: fused_step.launch_fk(go1, *args, *out),
+                 "fk_spheres_kernel", lambda: fused_step.fk_spheres_kernel(go1, *args),
+                 lambda: soa.fk_spheres(go1, *args), args, out, smi),
     )
 
 
-def phase_check():
-    """One go1gate step at 2 envs: kernel on the card vs plain on the CPU."""
-    wrap_c, _ = make_mqe_env("go1gate", num_envs=2, seed=0, device="cuda")
-    wrap_h, _ = make_mqe_env("go1gate", num_envs=2, seed=0, device="cpu")
+FK_FULL_NAMES = ("Rw", "pw", "vw", "sph_x", "sph_v")
+
+
+def phase_fk_full(smi):
+    """The full FK of the NPCs at the slices' shape: B = 4096 boxes (free)
+    and welded seesaws. The JSON entry carries the box's numbers, the
+    go1pushbox slice's; the seesaw's are printed."""
+    B = 4096
+    entry, worst = {}, 0.0
+    for name, root_free in (("box", True), ("seesaw", False)):
+        m = load_model(name, root_free=root_free)
+        args = fk_state(m, B, seed=5)
+        out = fused_step.fk_full_kernel(m, *args)
+        torch.cuda.synchronize()
+        worst = max(worst, compare("fk_full", f"{name} B={B}", soa.fk_full(m, *args), out,
+                                   FK_FULL_NAMES, (FK_TOL,) * 5))
+        t = timing("fk_full", f"{name} B={B}",
+                   lambda: fused_step.launch_fk_full(m, *args, out), "fk_full_kernel",
+                   lambda: fused_step.fk_full_kernel(m, *args),
+                   lambda: soa.fk_full(m, *args), args, out, smi)
+        if name == "box":
+            entry.update(t)
+        else:
+            entry["seesaw"] = t
+    return dict(
+        name="fk_full_kernel", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
+        replaces="mqe_tpu/physics/soa.py:556", max_abs_err=worst, library_ms=None, **entry,
+    )
+
+
+def phase_check(task):
+    """One step at 2 envs: kernels on the card vs plain on the CPU."""
+    wrap_c, _ = make_mqe_env(task, num_envs=2, seed=0, device="cuda")
+    wrap_h, _ = make_mqe_env(task, num_envs=2, seed=0, device="cpu")
     ts_c, _ = wrap_c.reset()
     ts_h = env_state_to(ts_c, "cpu")
-    acts = np.random.RandomState(5).uniform(-1, 1, (2, 2, 3)).astype(np.float32)
+    acts = np.random.RandomState(5).uniform(-1, 1, (2, wrap_c.num_agents, 3)).astype(np.float32)
     fresh = wrap_c.env.fresh_state()  # the reset state, should an env reset
     out_c = wrap_c.step(ts_c, torch.as_tensor(acts, device="cuda"),
                         draws=wrap_c.env.draws({"fresh": fresh}))
     out_h = wrap_h.step(ts_h, torch.as_tensor(acts),
                         draws=wrap_h.env.draws({"fresh": env_state_to(fresh, "cpu")}))
     worst = {}
-    for n in NAMES:
-        a = getattr(out_c[0].env.phys.agents, n).cpu()
-        b = getattr(out_h[0].env.phys.agents, n)
-        worst[n] = float((a - b).abs().max())
+    for who in ("agents", "npcs"):
+        for n in NAMES:
+            a = getattr(getattr(out_c[0].env.phys, who), n).cpu()
+            b = getattr(getattr(out_h[0].env.phys, who), n)
+            worst[f"{who}.{n}"] = float((a - b).abs().max()) if a.numel() else 0.0
     obs_d = float((out_c[1].cpu() - out_h[1]).abs().max())
     rew_d = float((out_c[2].cpu() - out_h[2]).abs().max())
     if bool(out_h[3].any()):
         raise AssertionError("an env reset in the check step; the comparison needs none")
     # the per-step bounds of tests/test_soa_episode.py between two paths
     tols = dict(pos=1e-6, quat=1e-5, lin_vel=3e-4, ang_vel=5e-3, q=2e-4, qd=2e-2)
-    for n, tol in tols.items():
-        if not worst[n] <= tol:
-            raise AssertionError(f"check {n}: card vs CPU {worst[n]:.3e} > {tol:.0e}")
+    for n, v in worst.items():
+        tol = tols[n.split(".")[1]]
+        if not v <= tol:
+            raise AssertionError(f"check {task} {n}: card vs CPU {v:.3e} > {tol:.0e}")
     if not (obs_d <= 1e-4 and rew_d <= 1e-4):
-        raise AssertionError(f"check obs {obs_d:.3e} / reward {rew_d:.3e} > 1e-4")
-    say("check", "go1gate 2 envs, card vs CPU after one step: "
+        raise AssertionError(f"check {task} obs {obs_d:.3e} / reward {rew_d:.3e} > 1e-4")
+    say("check", f"{task} 2 envs, card vs CPU after one step: "
         + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
         + f", obs {obs_d:.3e}, reward {rew_d:.3e}")
 
 
-KERNELS = {"fused_step": fused_step.step_actor_kernel, "fk_spheres": fused_step.fk_spheres_kernel}
+KERNELS = {"fused_step_kernel": fused_step.step_actor_kernel,
+           "fk_spheres_kernel": fused_step.fk_spheres_kernel,
+           "fk_full_kernel": fused_step.fk_full_kernel}
+SLICES = ("go1gate", "go1pushbox", "go1seesaw")
 
 
-def phase_slice(smi, num_envs=4096, steps=20):
+def phase_slice(smi, task, num_envs=4096, steps=20):
     for wrapper in KERNELS.values():
         wrapper.launches = 0
-    wrap, _ = make_mqe_env("go1gate", num_envs=num_envs, seed=0, device="cuda")
+    wrap, _ = make_mqe_env(task, num_envs=num_envs, seed=0, device="cuda")
     ts, obs = wrap.reset()
     torch.cuda.synchronize()
-    say("slice", f"go1gate {num_envs} envs built and reset, obs {tuple(obs.shape)}")
+    say("slice", f"{task} {num_envs} envs built and reset, obs {tuple(obs.shape)}")
     cmds = torch.as_tensor(
         np.random.RandomState(1).uniform(-1, 1, (num_envs, wrap.num_agents, 3)).astype(np.float32),
         device="cuda")
@@ -299,19 +379,26 @@ def phase_slice(smi, num_envs=4096, steps=20):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: wrapper.launches for name, wrapper in KERNELS.items()}
-    per_step = wrap.env.decimation * wrap.env.subiters
+    substeps = wrap.env.decimation * wrap.env.subiters
+    npc = wrap.env.scene.num_npcs > 0
+    expect = {"fused_step_kernel": substeps * (2 if npc else 1), "fk_spheres_kernel": substeps,
+              "fk_full_kernel": substeps if npc else 0}
     for name, n in launches.items():
-        if n != per_step * (steps + 1):
-            raise AssertionError(
-                f"{name} launched {n} times in {steps + 1} steps, expected {per_step} a step")
+        if n != expect[name] * (steps + 1):
+            raise AssertionError(f"{task}: {name} launched {n} times in {steps + 1} steps, "
+                                 f"expected {expect[name]} a step")
+    npcs = ts.env.phys.npcs
     for name, t, shape in (("obs", obs, (num_envs, wrap.num_agents, wrap.obs_dim)),
-                           ("reward", rew, (num_envs, wrap.num_agents))):
+                           ("reward", rew, (num_envs, wrap.num_agents)),
+                           ("npc pos", npcs.pos, (num_envs, wrap.num_npcs, 3)),
+                           ("npc q", npcs.q, tuple(npcs.qd.shape))):
         if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"{name}: shape {tuple(t.shape)} (expected {shape}) or non-finite")
+            raise AssertionError(f"{task} {name}: shape {tuple(t.shape)} (expected {shape}) "
+                                 "or non-finite")
     sps = num_envs * steps / dt
-    say("slice", f"{steps} steps in {dt:.3f} s: {sps:.1f} env-steps/s, {dt / steps * 1e3:.2f} ms/step, "
-        f"kernel launches {launches} ({per_step} a step each), resets {int(done.sum())} in the last "
-        f"step; on {smi}")
+    say("slice", f"{task}: {steps} steps in {dt:.3f} s: {sps:.1f} env-steps/s, "
+        f"{dt / steps * 1e3:.2f} ms/step, kernel launches {launches} in {steps + 1} steps "
+        f"({expect} a step), resets {int(done.sum())} in the last step; on {smi}")
     return launches
 
 
@@ -332,11 +419,13 @@ def main():
         if any(w in line for w in ("entry function", "registers", "spill", "stack frame")):
             say("build", "ptxas " + line.strip())
 
-    entries = [phase_kernel(smi), phase_fk(smi)]
-    phase_check()
-    launches = phase_slice(smi)
+    entries = [phase_kernel(smi), phase_fk(smi), phase_fk_full(smi)]
+    for task in ("go1gate", "go1plane", "go1pushbox", "go1seesaw"):
+        phase_check(task)
+    by_task = {task: phase_slice(smi, task) for task in SLICES}
     for entry in entries:
-        entry["launches"] = launches[entry["name"]]
+        entry["launches"] = sum(counts[entry["name"]] for counts in by_task.values())
+        entry["launches_by_task"] = {t: counts[entry["name"]] for t, counts in by_task.items()}
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-// Two kernels over a batch of articulated actors that share one BodyModel,
+// Three kernels over a batch of articulated actors that share one BodyModel,
 // one CUDA thread ("lane") per body:
 //
 //   fused_step_kernel - one dynamics + integration substep: forward
@@ -16,6 +16,9 @@
 //     positions and velocities: soa.fk_spheres, which feeds the contact
 //     stage. The JAX package has no Pallas kernel for it (XLA fuses it into
 //     the jitted step).
+//   fk_full_kernel - the same, plus each body's world pose and world
+//     velocity: soa.fk_full, which feeds the NPCs' contact stage (their
+//     primitives are posed from the bodies). No Pallas kernel either.
 //
 // Every device function is named after the soa.py function it mirrors and
 // keeps its order of operations.
@@ -40,6 +43,13 @@
 // kernel reads every state tensor through its own pointer and writes six
 // output tensors (no packed buffer). Optional inputs are null when absent.
 //
+// Rounding: utils/build.py compiles with -fmad=false, so every multiply and
+// add rounds on its own, as the plain version's tensor ops do; with the
+// plain version's order of operations the outputs then differ from it only
+// by sin/cos rounding and sums the plain version takes in another order.
+// (With contraction the full FK of the seesaw missed the 1e-6 bound of
+// tests/test_torch_soa.py::test_fk_matches_jax by 1.19e-6 in sph_v.)
+//
 // Model constants are not compiled in: they come from one float32 table per
 // model (physics/model.py::model_tables, offsets below), copied into shared
 // memory by each block, so one build serves go1 and the NPC models.
@@ -51,6 +61,10 @@
 //     10.8 MB, 3.2 us; the plain version's 2.25e4 float operations a robot
 //     take 2.8 us. Bound by bytes.
 //   - fk_spheres: reads 37 floats a robot, writes 240: 9.1 MB, 2.7 us.
+//   - fk_full, at an NPC launch of the go1pushbox and go1seesaw slices
+//     (B = 4096 NPCs): a box reads 13 floats and writes 18 + 48, 1.3 MB,
+//     0.4 us; a seesaw (2 bodies, 35 spheres) reads 15 and writes 36 + 210,
+//     4.3 MB, 1.3 us. Bound by bytes, like fk_spheres; the same design.
 // What the design does about the bound: each byte is read once and written
 // once with neighbouring lanes on neighbouring addresses, and the tree's
 // arithmetic runs on 13 lanes a robot instead of one thread.
@@ -474,7 +488,41 @@ DEV Kin fk_levels(const float* T, float* S, const Lane& L, int depth, const Body
 
 // ---------------------------------------------------------------------------
 // fk_spheres: soa.fk_spheres -> sph_x, sph_v (B, ns, 3)
+// fk_full: soa.fk_full -> Rw (B, nb, 3, 3), pw (B, nb, 3), vw (B, nb, 6), sph_x, sph_v
 // ---------------------------------------------------------------------------
+
+// _body_vels' world velocity (angular, linear) of the lane's body, then
+// _spheres for the body's spheres; with `Rw_o` non-null also the body's
+// world pose and velocity (fk_full's packing).
+DEV void fk_outputs(const float* T, const Lane& L, const Kin& k, int nb, int ns,
+                    float* __restrict__ Rw_o, float* __restrict__ pw_o,
+                    float* __restrict__ vw_o, float* __restrict__ sph_x,
+                    float* __restrict__ sph_v) {
+  const V3 ww = m_vec(k.Rw, k.v.w), vw = m_vec(k.Rw, k.v.v);
+  if (Rw_o != nullptr) {
+    const long long r = L.b * nb + L.body;
+    float* R = Rw_o + r * 9;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) R[i * 3 + j] = k.Rw.a[i][j];
+    float* p = pw_o + r * 3;
+    p[0] = k.pw.x; p[1] = k.pw.y; p[2] = k.pw.z;
+    float* v = vw_o + r * 6;
+    v[0] = ww.x; v[1] = ww.y; v[2] = ww.z;
+    v[3] = vw.x; v[4] = vw.y; v[5] = vw.z;
+  }
+  for (int s = 0; s < ns; ++s) {
+    if ((int)T[T_SBODY + s] != L.body) continue;
+    const V3 off = v_load(T + T_SPOS + 3 * s);
+    const V3 x = v_add(k.pw, m_vec(k.Rw, off));
+    const V3 vel = v_add(vw, v_cross(ww, v_sub(x, k.pw)));
+    float* xo = sph_x + (L.b * ns + s) * 3;
+    float* vo = sph_v + (L.b * ns + s) * 3;
+    xo[0] = x.x; xo[1] = x.y; xo[2] = x.z;
+    vo[0] = vel.x; vo[1] = vel.y; vo[2] = vel.z;
+  }
+}
 
 __global__ void __launch_bounds__(THREADS)
 fk_spheres_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
@@ -490,18 +538,25 @@ fk_spheres_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
   const BodyIn in = load_body(L, nq, pos, quat, lin_vel, ang_vel, q, qd);
   const Kin k = fk_levels(T, S, L, depth, in);
   if (!L.active) return;
-  // _body_vels' world velocity, then _spheres for this body's spheres
-  const V3 ww = m_vec(k.Rw, k.v.w), vw = m_vec(k.Rw, k.v.v);
-  for (int s = 0; s < ns; ++s) {
-    if ((int)T[T_SBODY + s] != L.body) continue;
-    const V3 off = v_load(T + T_SPOS + 3 * s);
-    const V3 x = v_add(k.pw, m_vec(k.Rw, off));
-    const V3 vel = v_add(vw, v_cross(ww, v_sub(x, k.pw)));
-    float* xo = sph_x + (L.b * ns + s) * 3;
-    float* vo = sph_v + (L.b * ns + s) * 3;
-    xo[0] = x.x; xo[1] = x.y; xo[2] = x.z;
-    vo[0] = vel.x; vo[1] = vel.y; vo[2] = vel.z;
-  }
+  fk_outputs(T, L, k, nb, ns, nullptr, nullptr, nullptr, sph_x, sph_v);
+}
+
+__global__ void __launch_bounds__(THREADS)
+fk_full_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
+               const float* __restrict__ lin_vel, const float* __restrict__ ang_vel,
+               const float* __restrict__ q, const float* __restrict__ qd,
+               float* __restrict__ Rw_o, float* __restrict__ pw_o, float* __restrict__ vw_o,
+               float* __restrict__ sph_x, float* __restrict__ sph_v,
+               const float* __restrict__ tables, int B, int nb, int nq, int ns,
+               int lanes_log2) {
+  __shared__ float T[TABLE_SIZE];
+  __shared__ float S[FK_FIELDS * THREADS];
+  int depth;
+  const Lane L = lane_setup(T, tables, B, nb, lanes_log2, &depth);
+  const BodyIn in = load_body(L, nq, pos, quat, lin_vel, ang_vel, q, qd);
+  const Kin k = fk_levels(T, S, L, depth, in);
+  if (!L.active) return;
+  fk_outputs(T, L, k, nb, ns, Rw_o, pw_o, vw_o, sph_x, sph_v);
 }
 
 // ---------------------------------------------------------------------------
@@ -752,7 +807,7 @@ static int grid_for(int B, int lanes_log2) {
   return (int)((threads + THREADS - 1) / THREADS);
 }
 
-// Both launch on `stream` (PyTorch's current stream) and do not synchronise.
+// All three launch on `stream` (PyTorch's current stream) and do not synchronise.
 // They return cudaGetLastError() after the launch (0 = success).
 extern "C" int fused_step_launch(const float* pos, const float* quat, const float* lin_vel,
                                  const float* ang_vel, const float* q, const float* qd,
@@ -778,5 +833,17 @@ extern "C" int fk_spheres_launch(const float* pos, const float* quat, const floa
   if (B <= 0) return 0;
   fk_spheres_kernel<<<grid_for(B, lanes_log2), THREADS, 0, (cudaStream_t)stream>>>(
       pos, quat, lin_vel, ang_vel, q, qd, sph_x, sph_v, tables, B, nb, nq, ns, lanes_log2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fk_full_launch(const float* pos, const float* quat, const float* lin_vel,
+                              const float* ang_vel, const float* q, const float* qd,
+                              float* Rw, float* pw, float* vw, float* sph_x, float* sph_v,
+                              const float* tables, int B, int nb, int nq, int ns,
+                              int lanes_log2, void* stream) {
+  if (B <= 0) return 0;
+  fk_full_kernel<<<grid_for(B, lanes_log2), THREADS, 0, (cudaStream_t)stream>>>(
+      pos, quat, lin_vel, ang_vel, q, qd, Rw, pw, vw, sph_x, sph_v, tables, B, nb, nq, ns,
+      lanes_log2);
   return (int)cudaGetLastError();
 }

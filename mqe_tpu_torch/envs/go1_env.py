@@ -1,7 +1,8 @@
 """Vectorized multi-agent Go1 environment, PyTorch.
 
-Counterpart of `mqe_tpu/envs/go1_env.py` for tasks without NPCs, cameras or
-a terrain curriculum (the go1gate slice): one control step runs the
+Counterpart of `mqe_tpu/envs/go1_env.py` for tasks without static fixtures,
+scripted NPCs, cameras or a terrain curriculum (go1gate, go1plane, and the
+passive NPCs of go1pushbox and go1seesaw): one control step runs the
 command -> locomotion (trot controller + learned residual) -> actuator net ->
 torque chain, `decimation` x `subiters` physics substeps, termination, a
 masked auto-reset (`torch.where`, no indexed writes) and the observations.
@@ -76,8 +77,11 @@ class EnvState:
 def _unsupported(cfg):
     """What of a task config the port does not run yet, with its ROADMAP item."""
     out = []
-    if cfg.env.num_npcs or cfg.asset.npc_model or cfg.asset.static_model:
-        out.append("NPCs and static fixtures (ROADMAP Queue A item 11)")
+    if cfg.asset.static_model:
+        out.append("static fixtures (ROADMAP Queue A item 11)")
+    behavior = getattr(cfg.asset, "npc_behavior", "none")
+    if behavior in ("sheep", "defender"):
+        out.append(f"the scripted {behavior!r} NPC behaviour (ROADMAP Queue A item 11)")
     oc = cfg.obs.cfgs
     if getattr(oc, "depth_image", False) or getattr(oc, "rgb_image", False):
         out.append("onboard cameras (ROADMAP Queue A item 14)")
@@ -103,9 +107,12 @@ class Go1Env:
         dev = self.device
         self.num_envs = num_envs or cfg.env.num_envs
         self.num_agents = cfg.env.num_agents
-        E, A = self.num_envs, self.num_agents
+        self.num_npcs = cfg.env.num_npcs
+        E, A, N = self.num_envs, self.num_agents, self.num_npcs
 
         self.robot = load_model(cfg.asset.model)
+        self.npc = (load_model(cfg.asset.npc_model, root_free=not cfg.asset.fix_npc_base_link)
+                    if cfg.asset.npc_model else None)
         self.sim_dt = cfg.sim.dt
         self.subiters = cfg.sim.subiters
         self.decimation = cfg.control.decimation
@@ -163,12 +170,18 @@ class Go1Env:
             scale=float(self.build.scale), boxes=self.env_boxes,
         )
 
+        # the NPC collides unless a static fixture stands in for it
+        self.npc_has_collision = cfg.asset.npc_collision and cfg.asset.static_model is None
+
         # flat ground (every predefined task) -> analytic plane contact
         hmin, hmax = float(self.build.height.min()), float(self.build.height.max())
         flat_height = hmin if hmin == hmax else None
         self.scene = S.SceneModel(
             robot=self.robot,
             num_agents=A,
+            npc=self.npc if self.npc_has_collision else None,
+            num_npcs=N if self.npc_has_collision else 0,
+            npc_root_free=not cfg.asset.fix_npc_base_link,
             contact=C.ContactParams(
                 kn=cfg.physx.kn, hc_damping=cfg.physx.hc_damping,
                 v_slip=cfg.physx.v_slip, f_max=cfg.physx.f_max,
@@ -223,6 +236,26 @@ class Go1Env:
                 (A, 1),
             )
         self.agent_init = t(arr)  # (A, 13)
+
+        # NPC init states (N, 13) and joint angles (nq_npc,)
+        narr = np.zeros((N, 13), dtype=np.float32)
+        narr[:, 6] = 1.0
+        if N > 0 and ist.init_states_npc:
+            narr = np.array(
+                [s.pos + s.rot + s.lin_vel + s.ang_vel for s in ist.init_states_npc],
+                dtype=np.float32,
+            )
+            if narr.shape[0] < N:
+                narr = np.tile(narr, (int(np.ceil(N / narr.shape[0])), 1))[:N]
+            narr = narr[:N]
+        self.npc_init = t(narr)
+        dnpc = np.zeros((0,), dtype=np.float32)
+        if self.npc is not None:
+            dnpc = np.asarray(ist.default_npc_joint_angles, dtype=np.float32)
+            if dnpc.size < self.npc.nq:
+                dnpc = np.zeros(self.npc.nq, dtype=np.float32)
+            dnpc = dnpc[:self.npc.nq]
+        self.npc_default_q = t(dnpc)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
 
@@ -256,7 +289,22 @@ class Go1Env:
             q=q, qd=torch.zeros((E, A, 12), device=dev),
         )
         z = lambda *s: torch.zeros(s, device=dev)
-        npcs = S.ActorState(z(E, 0, 3), z(E, 0, 4), z(E, 0, 3), z(E, 0, 3), z(E, 0, 0), z(E, 0, 0))
+        N = self.num_npcs
+        if N > 0:
+            # every NPC field is made contiguous here, as the kernels take it
+            ninit = self.npc_init.expand(E, N, 13)
+            npos = ninit[..., :3].clone()
+            nrange = dr_cfg.init_npc_base_pos_range
+            if nrange is not None:
+                npos[..., 0] += draws.uniform("npc_spawn_x", (E, N), nrange["x"][0], nrange["x"][1], dev)
+                npos[..., 1] += draws.uniform("npc_spawn_y", (E, N), nrange["y"][0], nrange["y"][1], dev)
+            nq = self.npc_default_q.expand(E, N, self.npc_default_q.shape[0]).clone()
+            npcs = S.ActorState(
+                pos=npos, quat=ninit[..., 3:7].clone(), lin_vel=ninit[..., 7:10].clone(),
+                ang_vel=ninit[..., 10:13].clone(), q=nq, qd=torch.zeros_like(nq),
+            )
+        else:
+            npcs = S.ActorState(z(E, 0, 3), z(E, 0, 4), z(E, 0, 3), z(E, 0, 3), z(E, 0, 0), z(E, 0, 0))
 
         mu = torch.ones(E, device=dev)
         if dr_cfg.randomize_friction:
@@ -283,10 +331,15 @@ class Go1Env:
     def _reset_all(self, draws: Draws) -> EnvState:
         E, A, dev = self.num_envs, self.num_agents, self.device
         agents, npcs, dr = self._fresh_env_state(draws)
-        # spawn = init-state pos + terrain agent origin (xy only)
+        # spawn = init-state pos + terrain agent origin (xy only); NPCs are
+        # placed from the env origin
         ao = self.agent_origins.clone()
         ao[..., 2] = 0.0
         agents = replace(agents, pos=agents.pos + ao)
+        if self.num_npcs > 0:
+            eo = self.env_origins.clone()
+            eo[:, 2] = 0.0
+            npcs = replace(npcs, pos=npcs.pos + eo[:, None, :])
         z = lambda *s: torch.zeros(s, device=dev)
         zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
         zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)

@@ -1,8 +1,8 @@
 """Task registry + factory (ref mqe/envs/utils.py:38-133).
 
-Counterpart of `mqe_tpu/envs/registry.py`. The port runs go1gate so far;
-the other tasks of the JAX package raise NotImplementedError naming the
-ROADMAP item that ports them.
+Counterpart of `mqe_tpu/envs/registry.py`. The port runs go1plane, go1gate,
+go1pushbox and go1seesaw so far; the other tasks of the JAX package raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -11,17 +11,20 @@ from mqe_tpu_torch.envs import wrappers as W
 from mqe_tpu_torch.envs.go1_env import Go1Env
 
 ENV_DICT = {
+    "go1plane": {"config": T.Go1PlaneCfg, "wrapper": W.EmptyWrapper},
     "go1gate": {"config": T.Go1GateCfg, "wrapper": W.Go1GateWrapper},
+    "go1seesaw": {"config": T.Go1SeesawCfg, "wrapper": W.Go1SeesawWrapper},
+    "go1pushbox": {"config": T.Go1PushboxCfg, "wrapper": W.Go1PushboxWrapper},
 }
 
 # tasks of mqe_tpu/envs/registry.py not ported yet -> ROADMAP Queue A item
 NOT_PORTED = {
-    "go1plane": "ROADMAP Queue A item 11 (EmptyWrapper)",
-    **{name: "ROADMAP Queue A item 11 (NPC physics and task wrappers)" for name in (
+    name: "ROADMAP Queue A item 11 (NPC scripts, static fixtures and task wrappers)"
+    for name in (
         "go1sheep-easy", "go1sheep-hard", "go1football-defender", "go1football-1vs1",
-        "go1football-2vs2", "go1seesaw", "go1pushbox", "go1tug", "go1wrestling",
-        "go1revolvingdoor", "go1bridge", "go1door",
-    )},
+        "go1football-2vs2", "go1tug", "go1wrestling", "go1revolvingdoor", "go1bridge",
+        "go1door",
+    )
 }
 
 

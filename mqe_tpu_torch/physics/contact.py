@@ -1,8 +1,10 @@
-"""Penalty contact model: spheres vs plane / heightfield / boxes / spheres.
+"""Penalty contact model: spheres vs plane / heightfield / boxes / spheres /
+vertical cylinders.
 
 PyTorch counterpart of `mqe_tpu/physics/contact.py`. All robot-side collision
 geometry is spheres; the world side is a flat plane or a regular-grid
-heightfield plus analytic axis-aligned boxes (walls). Forces are compliant:
+heightfield plus analytic axis-aligned boxes (walls), and the NPCs' sphere,
+box and cylinder primitives in their own frames. Forces are compliant:
 Hunt-Crossley normal force and regularised Coulomb friction.
 
 All functions are per contact point and broadcast over leading dims.
@@ -127,3 +129,42 @@ def sphere_sphere(pos_a, vel_a, r_a, pos_b, vel_b, r_b, params, mu_scale=1.0):
     n = delta / (dist[..., None] + 1e-9)
     depth = (r_a + r_b) - dist
     return penalty_force(depth, n, vel_a - vel_b, params, mu_scale)
+
+
+def sphere_vertical_cylinder(pos, vel, radius, center, cyl_radius, half_length, params,
+                             mu_scale=1.0, cyl_vel=None):
+    """Force on a sphere from a vertical (z-axis) cylinder (e.g. the seesaw's
+    pivot, the tug disc). center: cylinder center."""
+    rel = pos - center
+    rho = torch.linalg.norm(rel[..., :2], dim=-1)
+    dr = rho - cyl_radius                      # >0: radially outside
+    dz = torch.abs(rel[..., 2]) - half_length  # >0: above/below
+
+    radial_dir = rel[..., :2] / (rho[..., None] + 1e-9)
+    z_dir = torch.sign(rel[..., 2])
+    z_dir = torch.where(z_dir == 0, 1.0, z_dir)
+
+    # closest-feature logic
+    outside_r = dr > 0
+    outside_z = dz > 0
+    # side contact normal (radial), cap contact normal (z), edge blend
+    n_side = torch.cat([radial_dir, torch.zeros_like(rho[..., None])], dim=-1)
+    n_cap = torch.cat([torch.zeros_like(rel[..., :2]), z_dir[..., None]], dim=-1)
+    dist_out = torch.sqrt(torch.clamp_min(dr, 0) ** 2 + torch.clamp_min(dz, 0) ** 2)
+    n_edge_2d = torch.stack([torch.clamp_min(dr, 0), torch.clamp_min(dz, 0)], dim=-1)
+    n_edge_2d = n_edge_2d / (torch.linalg.norm(n_edge_2d, dim=-1, keepdim=True) + 1e-9)
+    n_edge = n_side * n_edge_2d[..., 0:1] + n_cap * n_edge_2d[..., 1:2]
+
+    both_out = outside_r & outside_z
+    n = torch.where(both_out[..., None], n_edge,
+                    torch.where(outside_r[..., None], n_side, n_cap))
+    # penetration depth
+    depth_partial = radius - torch.where(both_out, dist_out, torch.where(outside_r, dr, dz))
+    inside = (~outside_r) & (~outside_z)
+    # fully inside: exit along the axis with the smaller penetration
+    n_inside = torch.where((torch.abs(dr) < torch.abs(dz))[..., None], n_side, n_cap)
+    n = torch.where(inside[..., None], n_inside, n)
+    depth = torch.where(inside, radius + torch.minimum(torch.abs(dr), torch.abs(dz)),
+                        depth_partial)
+    rel_vel = vel if cyl_vel is None else vel - cyl_vel
+    return penalty_force(depth, n, rel_vel, params, mu_scale)

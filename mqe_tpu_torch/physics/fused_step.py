@@ -1,10 +1,10 @@
-"""The fused dynamics substep and the sphere FK as hand-written CUDA kernels.
+"""The fused dynamics substep and the FK stages as hand-written CUDA kernels.
 
 `step_actor_kernel` has the signature of `step_actor_pallas`
 (mqe_tpu/physics/pallas_step.py), the TPU kernel it replaces, and returns what
-`soa.step_actor` returns; `fk_spheres_kernel` returns what `soa.fk_spheres`
-returns. Both are entry points of csrc/fused_step.cu (one lane per body, see
-its header). For CUDA tensors a wrapper launches its kernel on PyTorch's
+`soa.step_actor` returns; `fk_spheres_kernel` and `fk_full_kernel` return what
+`soa.fk_spheres` and `soa.fk_full` return. All three are entry points of
+csrc/fused_step.cu (one lane per body, see its header). For CUDA tensors a wrapper launches its kernel on PyTorch's
 current stream, reading the (B, k) state tensors in place and writing
 outputs it allocates; for CPU tensors it runs the plain version; on any other
 device it raises. Inputs are checked on every device, so the CPU tests hold
@@ -46,6 +46,11 @@ def library():
         + [_c_int] * 5 + [_c_ptr]                    # B, nb, nq, ns, lanes_log2, stream
     )
     lib.fk_spheres_launch.restype = _c_int
+    lib.fk_full_launch.argtypes = (
+        [_c_ptr] * 6 + [_c_ptr] * 5 + [_c_ptr]       # pos .. qd, Rw .. sph_v, tables
+        + [_c_int] * 5 + [_c_ptr]                    # B, nb, nq, ns, lanes_log2, stream
+    )
+    lib.fk_full_launch.restype = _c_int
     nb, ns = _c_int(), _c_int()
     lib.fused_step_max_sizes(ctypes.byref(nb), ctypes.byref(ns))
     if (lib.fused_step_table_size(), nb.value, ns.value) != (TABLE_SIZE, MAX_NB, MAX_NS):
@@ -203,3 +208,35 @@ def fk_spheres_kernel(model: BodyModel, pos, quat, lin_vel, ang_vel, q, qd):
 
 
 fk_spheres_kernel.launches = 0  # kernel launches since the last reset to 0
+
+
+def launch_fk_full(model, pos, quat, lin_vel, ang_vel, q, qd, out):
+    """Launch the full-FK kernel on checked CUDA tensors into `out`, the five
+    output tensors; counts the launch."""
+    rc = library().lib.fk_full_launch(
+        pos.data_ptr(), quat.data_ptr(), lin_vel.data_ptr(), ang_vel.data_ptr(),
+        q.data_ptr(), qd.data_ptr(), *(t.data_ptr() for t in out),
+        tables_for(model, pos.device).data_ptr(),
+        pos.shape[0], model.nb, model.nq, len(model.sph_tags), lanes_log2(model),
+        torch.cuda.current_stream(pos.device).cuda_stream,
+    )
+    _raise_on(rc, "fk_full")
+    fk_full_kernel.launches += 1
+
+
+def fk_full_kernel(model: BodyModel, pos, quat, lin_vel, ang_vel, q, qd):
+    """Each body's world pose Rw (B, nb, 3, 3), pw (B, nb, 3) and world velocity
+    vw (B, nb, 6) in (angular, linear) order, and the spheres' sph_x, sph_v
+    (B, ns, 3), as `soa.fk_full` returns them, for a flat (B, k) batch."""
+    B, expect = _state_shapes(model, pos, quat, lin_vel, ang_vel, q, qd)
+    device = _check("fk_full_kernel", expect)
+    if device.type == "cpu":
+        return soa.fk_full(model, pos, quat, lin_vel, ang_vel, q, qd)
+    nb, ns = model.nb, len(model.sph_tags)
+    out = tuple(torch.empty(shape, dtype=torch.float32, device=device)
+                for shape in ((B, nb, 3, 3), (B, nb, 3), (B, nb, 6), (B, ns, 3), (B, ns, 3)))
+    launch_fk_full(model, pos, quat, lin_vel, ang_vel, q, qd, out)
+    return out
+
+
+fk_full_kernel.launches = 0  # kernel launches since the last reset to 0

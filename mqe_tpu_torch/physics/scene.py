@@ -1,15 +1,19 @@
-"""Composed physics of the robots of a batch of envs, one substep at a time.
+"""Composed physics of the robots and NPCs of a batch of envs, one substep
+at a time.
 
 PyTorch counterpart of `mqe_tpu/physics/scene.py::substep_batch` for scenes
-without NPCs (the go1gate slice): forward kinematics of the collision spheres
--> contact forces against the ground, the env's wall boxes and the other
-robots' coarse spheres (physics/contact.py, batched over the env axis where
-the JAX package vmaps) -> the dynamics substep. The sphere FK and the
-dynamics substep are the two entry points of physics/fused_step.py: CUDA
-kernels for CUDA tensors, their plain versions (physics/soa.py) for CPU
-tensors.
+without static fixtures: forward kinematics of the robots' collision spheres
+and of the NPCs' bodies and spheres -> contact forces against the ground, the
+env's wall boxes, the other robots' coarse spheres and the NPCs' collision
+primitives (with the reaction wrench on the NPC bodies), and of the NPCs'
+spheres against the ground, the boxes and each other (physics/contact.py,
+batched over the env axis where the JAX package vmaps) -> the dynamics
+substep of the robots, then of the NPCs. The sphere FK, the full FK and the
+dynamics substep are the entry points of physics/fused_step.py: CUDA kernels
+for CUDA tensors, their plain versions (physics/soa.py) for CPU tensors.
 
-Actor layout: agents first, then NPCs; per-agent tensors carry (E, A, ...).
+Actor layout: agents first, then NPCs; per-agent tensors carry (E, A, ...),
+per-NPC tensors (E, N, ...).
 """
 from __future__ import annotations
 
@@ -19,8 +23,12 @@ import numpy as np
 import torch
 
 from mqe_tpu_torch.physics import contact as C
-from mqe_tpu_torch.physics.fused_step import fk_spheres_kernel, step_actor_kernel
-from mqe_tpu_torch.physics.model import BodyModel
+from mqe_tpu_torch.physics.fused_step import (
+    fk_full_kernel,
+    fk_spheres_kernel,
+    step_actor_kernel,
+)
+from mqe_tpu_torch.physics.model import PRIM_BOX, PRIM_SPHERE, BodyModel
 
 
 @dataclass
@@ -58,6 +66,7 @@ class DomainRand:
 @dataclass
 class Contacts:
     sphere_force: torch.Tensor    # (E, A, ns, 3) world force on each agent sphere
+    npc_sphere_force: torch.Tensor  # (E, N, ns_npc, 3); (E, 0, 0, 3) without NPCs
     feet_force: torch.Tensor      # (E, A, 4, 3) foot spheres
 
 
@@ -67,6 +76,9 @@ class SceneModel:
 
     robot: BodyModel
     num_agents: int
+    npc: BodyModel | None = None
+    num_npcs: int = 0
+    npc_root_free: bool = True
     contact: C.ContactParams = C.DEFAULT_PARAMS
     self_collision: bool = True
     # ground height when the heightfield is constant (every predefined task):
@@ -110,15 +122,92 @@ def _terrain_and_box_force(pos, vel, radius, terrain: Terrain, params, mu_scale,
     return f
 
 
+def _npc_prim_force(scene: SceneModel, sph_x, sph_v, sph_r, npc_Rw, npc_pw, npc_vw, params,
+                    mu_scale):
+    """Agent spheres vs NPC collision primitives, over the env batch.
+
+    sph_x/v: (E, S, 3) agent spheres, agent-major; sph_r: (S,); npc_*: FK of
+    the NPCs, (E, N, nb_n, ...); mu_scale: (E,). Returns (E, S, 3) force on
+    the spheres and (E, N, nb_n, 6) reaction wrench on the NPC bodies (world,
+    about the body origin). Sums keep the JAX package's order: the sphere
+    force over N, the reaction over S.
+    """
+    npc = scene.npc
+    E = sph_x.shape[0]
+    dt_ = sph_x.dtype
+    mu = mu_scale[:, None, None]
+    f_sph = torch.zeros_like(sph_x)
+    wrench = torch.zeros((E, scene.num_npcs, npc.nb, 6), dtype=dt_, device=sph_x.device)
+    r = sph_r[:, None]                                       # (S, 1)
+    for pi in range(len(npc.prim_tags)):
+        b = int(npc.prim_body[pi])
+        kind = int(npc.prim_kind[pi])
+        ppos = torch.as_tensor(npc.prim_pos[pi], dtype=dt_, device=sph_x.device)
+        prot = torch.as_tensor(npc.prim_rot[pi], dtype=dt_, device=sph_x.device)
+        psize = np.asarray(npc.prim_size[pi])
+        # world pose of the prim frame, per NPC
+        Rb = npc_Rw[:, :, b]                                 # (E, N, 3, 3)
+        pb = npc_pw[:, :, b]                                 # (E, N, 3)
+        Rp = Rb @ prot
+        pp = pb + torch.einsum("enij,j->eni", Rb, ppos)
+        w_n = npc_vw[:, :, b, :3]
+        v_n0 = npc_vw[:, :, b, 3:]
+
+        # the spheres in the prim frame: (E, S, N, 3)
+        x = sph_x[:, :, None, :]
+        rel = x - pp[:, None]
+        x_local = torch.einsum("enji,esnj->esni", Rp, rel)  # R^T @ rel
+        v_npc_at_x = v_n0[:, None] + torch.linalg.cross(w_n[:, None], x - pb[:, None], dim=-1)
+        v_rel = sph_v[:, :, None, :] - v_npc_at_x
+        v_local = torch.einsum("enji,esnj->esni", Rp, v_rel)
+
+        if kind == PRIM_SPHERE:
+            f_local = C.sphere_sphere(
+                x_local, v_local, r, torch.zeros_like(x_local), torch.zeros_like(v_local),
+                float(psize[0]), params, mu,
+            )
+        elif kind == PRIM_BOX:
+            half = torch.as_tensor(psize / 2.0, dtype=dt_, device=sph_x.device)
+            f_local = C.sphere_box(x_local, v_local, r, torch.zeros(3, dtype=dt_, device=sph_x.device),
+                                   half, params, mu)
+        else:  # cylinder (axis = prim z)
+            f_local = C.sphere_vertical_cylinder(
+                x_local, v_local, r, torch.zeros(3, dtype=dt_, device=sph_x.device),
+                float(psize[0]), float(psize[1]) / 2.0, params, mu,
+            )
+        f_world = torch.einsum("enij,esnj->esni", Rp, f_local)  # (E, S, N, 3)
+        f_sph = f_sph + f_world.sum(dim=2)
+        # reaction on NPC body b, the arm taken at the sphere center
+        react = -f_world
+        arm = x - pb[:, None]
+        wrench[:, :, b, :3] += torch.linalg.cross(arm, react, dim=-1).sum(dim=1)
+        wrench[:, :, b, 3:] += react.sum(dim=1)
+    return f_sph, wrench
+
+
+def _sphere_pairs(x, v, r, instances, params, mu_scale):
+    """Force on each of the (E, P) spheres x, v (radii r (P,)) from every
+    sphere of another instance (`instances` (P,)); mu_scale (E,)."""
+    ff = C.sphere_sphere(
+        x[:, :, None, :], v[:, :, None, :], r[:, None],
+        x[:, None, :, :], v[:, None, :, :], r[None, :], params, mu_scale[:, None, None],
+    )                                                       # (E, P, P, 3)
+    mask = (instances[:, None] != instances[None, :]).to(ff.dtype)
+    return (ff * mask[..., None]).sum(dim=2)
+
+
 def substep_batch(scene: SceneModel, terrain: Terrain, state: PhysState, tau,
-                  dr: DomainRand, dt: float):
+                  dr: DomainRand, dt: float, npc_tau=None):
     """One physics substep for the whole env batch.
 
-    state: actor tensors with a leading env axis (E, A, ...); tau (E, A, nq).
+    state: actor tensors with a leading env axis (E, A, ...) and (E, N, ...);
+    tau (E, A, nq); npc_tau (E, N, nq_npc), zero when not given (the env's
+    NPCs are passive, as the JAX package's env passes them zero torques).
     Returns (new PhysState, Contacts).
     """
     robot = scene.robot
     A = scene.num_agents
+    N = scene.num_npcs
     params = scene.contact
     ag = state.agents
     E = ag.pos.shape[0]
@@ -135,26 +224,54 @@ def substep_batch(scene: SceneModel, terrain: Terrain, state: PhysState, tau,
     )
     sph_r = torch.as_tensor(robot.sph_radius, dtype=sph_x_f.dtype, device=dev)
 
+    # ---- NPC kinematics (SoA over E*N) ----
+    npc = scene.npc
+    if N > 0:
+        nc = state.npcs
+        ns_n = len(npc.sph_tags)
+
+        def nflat(x):
+            return x.reshape((E * N,) + x.shape[2:])
+
+        nRw_f, npw_f, nvw_f, nsx_f, nsv_f = fk_full_kernel(
+            npc, nflat(nc.pos), nflat(nc.quat), nflat(nc.lin_vel),
+            nflat(nc.ang_vel), nflat(nc.q), nflat(nc.qd),
+        )
+        nsph_r = torch.as_tensor(npc.sph_radius, dtype=sph_x_f.dtype, device=dev)
+
     # ---- contact forces, batched over the env axis ----
     sx = sph_x_f.reshape(E, A * ns, 3)
     sv = sph_v_f.reshape(E, A * ns, 3)
+    flat_r = sph_r.repeat(A)
     force = _terrain_and_box_force(
-        sx, sv, sph_r.repeat(A), terrain, params, dr.mu_scale, scene.flat_height
+        sx, sv, flat_r, terrain, params, dr.mu_scale, scene.flat_height
     )
+    if N > 0:
+        f_npc, npc_wrench = _npc_prim_force(
+            scene, sx, sv, flat_r, nRw_f.reshape(E, N, npc.nb, 3, 3),
+            npw_f.reshape(E, N, npc.nb, 3), nvw_f.reshape(E, N, npc.nb, 6),
+            params, dr.mu_scale,
+        )
+        force = force + f_npc
+        # NPC spheres vs the ground and the wall boxes, then each other
+        nfx = nsx_f.reshape(E, N * ns_n, 3)
+        nfv = nsv_f.reshape(E, N * ns_n, 3)
+        nfr = nsph_r.repeat(N)
+        nsph_f = _terrain_and_box_force(
+            nfx, nfv, nfr, terrain, params, dr.mu_scale, scene.flat_height
+        )
+        if N > 1:
+            inst = torch.arange(N, device=dev).repeat_interleave(ns_n)
+            nsph_f = nsph_f + _sphere_pairs(nfx, nfv, nfr, inst, params, dr.mu_scale)
+        nsph_f = nsph_f.reshape(E, N, ns_n, 3)
     if A > 1 and scene.self_collision:
         ci = torch.as_tensor(scene.coarse_sphere_indices(), device=dev)
-        nc = ci.shape[0]
-        cx = sph_x_f.reshape(E, A, ns, 3)[:, :, ci].reshape(E, A * nc, 3)
-        cv = sph_v_f.reshape(E, A, ns, 3)[:, :, ci].reshape(E, A * nc, 3)
-        cr = sph_r[ci].repeat(A)
-        ff = C.sphere_sphere(
-            cx[:, :, None, :], cv[:, :, None, :], cr[:, None],
-            cx[:, None, :, :], cv[:, None, :, :], cr[None, :], params,
-            dr.mu_scale[:, None, None],
-        )                                                   # (E, A*nc, A*nc, 3)
-        inst = torch.arange(A, device=dev).repeat_interleave(nc)
-        mask = (inst[:, None] != inst[None, :]).to(ff.dtype)
-        fcoarse = (ff * mask[..., None]).sum(dim=2).reshape(E, A, nc, 3)
+        nc_ = ci.shape[0]
+        cx = sph_x_f.reshape(E, A, ns, 3)[:, :, ci].reshape(E, A * nc_, 3)
+        cv = sph_v_f.reshape(E, A, ns, 3)[:, :, ci].reshape(E, A * nc_, 3)
+        inst = torch.arange(A, device=dev).repeat_interleave(nc_)
+        fcoarse = _sphere_pairs(cx, cv, sph_r[ci].repeat(A), inst, params,
+                                dr.mu_scale).reshape(E, A, nc_, 3)
         force = force.reshape(E, A, ns, 3)
         force = force.index_add(2, ci, fcoarse)
     force = force.reshape(E, A, ns, 3)
@@ -176,6 +293,29 @@ def substep_batch(scene: SceneModel, terrain: Terrain, state: PhysState, tau,
     new_agents = ActorState(
         unflat(np_), unflat(nq_), unflat(nlv), unflat(nav), unflat(nql), unflat(nqdl)
     )
+
+    # ---- NPC dynamics: the same kernel, with the reaction wrench ----
+    if N > 0:
+        if npc_tau is None:
+            npc_tau = torch.zeros((E, N, npc.nq), dtype=sph_x_f.dtype, device=dev)
+
+        def nunflat(x):
+            return x.reshape((E, N) + x.shape[1:])
+
+        nout = step_actor_kernel(
+            npc,
+            nflat(nc.pos), nflat(nc.quat), nflat(nc.lin_vel), nflat(nc.ang_vel),
+            nflat(nc.q), nflat(nc.qd), nflat(npc_tau),
+            nsph_f.reshape(E * N, ns_n, 3), nsx_f,
+            extra_wrench=npc_wrench.reshape(E * N, npc.nb, 6),
+            dt=dt,
+            root_free=scene.npc_root_free,
+        )
+        new_npcs = ActorState(*(nunflat(x) for x in nout))
+    else:
+        new_npcs = state.npcs
+        nsph_f = torch.zeros((E, 0, 0, 3), dtype=sph_x_f.dtype, device=dev)
+
     fi = torch.as_tensor(scene.foot_sphere_indices(), device=dev)
-    contacts = Contacts(sphere_force=force, feet_force=force[:, :, fi])
-    return PhysState(agents=new_agents, npcs=state.npcs), contacts
+    contacts = Contacts(sphere_force=force, npc_sphere_force=nsph_f, feet_force=force[:, :, fi])
+    return PhysState(agents=new_agents, npcs=new_npcs), contacts

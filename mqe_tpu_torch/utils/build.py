@@ -21,9 +21,11 @@ from mqe_tpu_torch import REPO_ROOT
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "mqe_tpu_torch")
+# -fmad=false: no multiply and add is contracted into one fused rounding, so
+# each rounds as the plain PyTorch version's separate ops do
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 

@@ -60,9 +60,9 @@ def env_state_from_numpy(tree, device="cpu"):
                 kw[name] = _tensor(getattr(s, name), device)
         return EnvState(**kw)
 
-    if hasattr(tree, "extra"):
-        return TaskState(env=env(tree.env),
-                         extra={k: _tensor(v, device) for k, v in tree.extra.items()})
+    if hasattr(tree, "env"):  # a TaskState; an empty `extra` may have left no trace
+        return TaskState(env=env(tree.env), extra={
+            k: _tensor(v, device) for k, v in getattr(tree, "extra", {}).items()})
     return env(tree)
 
 

@@ -92,4 +92,4 @@ def test_other_tasks_name_their_roadmap_item():
     from mqe_tpu_torch.envs.registry import make_mqe_env
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
-        make_mqe_env("go1pushbox", num_envs=2, device="cpu")
+        make_mqe_env("go1sheep-easy", num_envs=2, device="cpu")

@@ -1,6 +1,6 @@
-"""Where one go1gate control step of the PyTorch port spends its time on the card.
+"""Where one control step of the PyTorch port spends its time on the card.
 
-    python3 tools/profile_step_torch.py [--num-envs 4096] [--steps 5]
+    python3 tools/profile_step_torch.py [--task go1gate] [--num-envs 4096] [--steps 5]
 
 Two views of the same steps, after 2 warm steps:
   * stage times: the host clock around each stage of the step, with
@@ -47,6 +47,8 @@ def timed(name, fn):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--task", default="go1gate",
+                    help="a task of mqe_tpu_torch.envs.registry (go1gate, go1pushbox, ...)")
     ap.add_argument("--num-envs", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
@@ -54,7 +56,7 @@ def main():
         sys.exit("profile_step_torch: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    wrap, _ = make_mqe_env("go1gate", num_envs=args.num_envs, seed=0, device="cuda")
+    wrap, _ = make_mqe_env(args.task, num_envs=args.num_envs, seed=0, device="cuda")
     ts, _ = wrap.reset()
     cmds = torch.as_tensor(np.random.RandomState(1).uniform(
         -1, 1, (args.num_envs, wrap.num_agents, 3)).astype(np.float32), device="cuda")
@@ -93,8 +95,10 @@ def main():
         "actuator net + torques": (go1_env.Go1Env, "_torques"),
         "substep_batch (all)": (scene, "substep_batch"),
         "sphere FK kernel (wrapper + launch)": (scene, "fk_spheres_kernel"),
+        "full FK kernel, NPCs (wrapper + launch)": (scene, "fk_full_kernel"),
         "ground + wall-box contact": (scene, "_terrain_and_box_force"),
-        "dynamics kernel (wrapper + launch)": (scene, "step_actor_kernel"),
+        "robot vs NPC primitives + reaction": (scene, "_npc_prim_force"),
+        "dynamics kernel (wrapper + launches)": (scene, "step_actor_kernel"),
         "termination": (go1_env.Go1Env, "_termination"),
         "reset draw + masked reset + obs": (go1_env.Go1Env, "_step_finish"),
     }
@@ -106,15 +110,17 @@ def main():
         ts = wrap.step(ts, cmds)[0]
     torch.cuda.synchronize()
     synced = (time.perf_counter() - t0) / args.steps
-    ms = {k: v / args.steps * 1e3 for k, v in ACC.items()}
+    ms = {k: ACC[k] / args.steps * 1e3 for k in stages}
     ms["robot-robot contact + reshapes (rest of substep)"] = ms["substep_batch (all)"] - sum(
-        ms[k] for k in ("sphere FK kernel (wrapper + launch)", "ground + wall-box contact",
-                        "dynamics kernel (wrapper + launch)"))
+        ms[k] for k in ("sphere FK kernel (wrapper + launch)",
+                        "full FK kernel, NPCs (wrapper + launch)", "ground + wall-box contact",
+                        "robot vs NPC primitives + reaction",
+                        "dynamics kernel (wrapper + launches)"))
     ms["rest of the step"] = synced * 1e3 - sum(
         ms[k] for k in ("locomotion (trot + body policy)", "actuator net + torques",
                         "substep_batch (all)", "termination", "reset draw + masked reset + obs"))
 
-    print(f"go1gate {args.num_envs} envs on {smi}: {wall * 1e3:.2f} ms/step "
+    print(f"{args.task} {args.num_envs} envs on {smi}: {wall * 1e3:.2f} ms/step "
           f"({args.num_envs / wall:.1f} env-steps/s); under the profiler {prof_wall * 1e3:.2f} ms/step")
     print(f"device: {dev_us / 1e3 / args.steps:.3f} ms of kernels per step, "
           f"{n_kernels / args.steps:.0f} kernels per step, busy share "
@@ -124,7 +130,7 @@ def main():
     print(f"stages (synchronized, {synced * 1e3:.2f} ms/step):")
     for k, v in sorted(ms.items(), key=lambda kv: -kv[1]):
         print(f"  {v:9.3f} ms/step  {k}")
-    print(json.dumps({"num_envs": args.num_envs, "ms_per_step": wall * 1e3,
+    print(json.dumps({"task": args.task, "num_envs": args.num_envs, "ms_per_step": wall * 1e3,
                       "env_steps_per_s": args.num_envs / wall,
                       "device_ms_per_step": dev_us / 1e3 / args.steps,
                       "kernels_per_step": n_kernels / args.steps,
