@@ -5,7 +5,8 @@
 Phases, each printing one line with its elapsed seconds:
   1. device  - the card's name and power limit;
   2. build   - nvcc builds csrc/fused_step.cu (all three entry points) into
-               build/mqe_tpu_torch/, with ptxas' registers, stack and spills;
+               build/mqe_tpu_torch/, with ptxas' registers, stack and spills
+               of each kernel (the step kernel must have no stack or spills);
   3. kernel  - the CUDA substep kernel against its plain PyTorch version
                (physics/soa.py::step_actor) on the card, six cases, at the
                tolerances of tests/test_pallas_step.py; then its device time
@@ -14,12 +15,14 @@ Phases, each printing one line with its elapsed seconds:
                welded seesaws), each beside the plain version's time and the
                bound of the card;
   4. fk      - the sphere-FK kernel against soa.fk_spheres at the slice's
-               shape (and two NPC models), at the tolerance of
+               shape, go1 at B = 8192, and at B = 37 and 1 (and two NPC
+               models at 37 and 1), at the tolerance of
                tests/test_torch_soa.py::test_fk_matches_jax; its time and
-               bound likewise;
+               bound likewise, and its floor: the device time at B = 1;
   5. fk_full - the full-FK kernel against soa.fk_full for the box and the
-               seesaw at B = 4096, the NPC shapes of the slices, at the same
-               tolerance; its time and bound for both;
+               seesaw at B = 4096, the NPC shapes of the slices, and at
+               4095, 37 and 1 (the ball at 37 and 1), at the same tolerance;
+               its time, bound and B = 1 floor for both;
   6. check   - one control step at 2 envs of go1gate, go1plane, go1pushbox
                and go1seesaw on the card (kernels) and on the CPU (plain
                versions) from the same state, compared, NPCs included;
@@ -69,6 +72,27 @@ T0 = time.perf_counter()
 
 def say(phase, msg):
     print(f"[{time.perf_counter() - T0:8.2f} s] {phase}: {msg}", flush=True)
+
+
+def ptxas_usage(log):
+    """{kernel: registers, stack, spill stores and loads in bytes} from the
+    `-Xptxas -v` report of the build: "Compiling entry function '<mangled
+    name>'", then "Function properties for" it with its stack and spills,
+    then "Used N registers"."""
+    usage, entry, props = {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = next((k for k in KERNELS if k in line), None)
+            if entry:
+                usage[entry] = {}
+        elif "Function properties for" in line:
+            props = entry if entry and entry in line else None
+        elif props and "stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            usage[props].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif entry and "Used" in line and "registers" in line:
+            usage[entry]["registers"] = int(line.split("Used")[1].split()[0])
+    return usage
 
 
 def smi_name_power():
@@ -162,21 +186,28 @@ def bound(tensors_in, tensors_out, ops):
             nb, bytes_ms, ops_ms)
 
 
-def timing(phase, label, launch, kernel, call, plain, ins, outs, smi):
+def timing(phase, label, launch, kernel, call, plain, ins, outs, smi, floor=None):
     """Time one kernel at one shape: its device time per launch into
     preallocated outputs (`launch`), the wrapper's time per call (checks,
     allocation, launch), the plain version's, and the card's bound for the
     work. Inputs stay in L2 between launches, as they do on the main path,
-    where the stage before just wrote them. Returns the JSON fields."""
+    where the stage before just wrote them. `floor`, where given, launches
+    the same kernel at B = 1: its device time is the least a launch of it
+    takes. Returns the JSON fields."""
     ms = device_ms(launch, kernel, 200)
     wrapper_ms = cuda_ms(call, 50)
     cuda_ms(plain, 1)
     plain_ms = cuda_ms(plain, 3)
     b_ms, b_by, nb, bytes_ms, ops_ms = bound(ins, outs, count_ops(plain))
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, wrapper_ms=wrapper_ms)
+    floor_txt = ""
+    if floor is not None:
+        out["floor_ms"] = device_ms(floor, kernel, 200)
+        floor_txt = f", floor (B = 1) {out['floor_ms']:.4f} ms/launch"
     say(phase, f"{label}: kernel {ms:.4f} ms/launch on the device (wrapper {wrapper_ms:.4f} "
-        f"ms/call), plain {plain_ms:.3f} ms/call; bound {b_ms:.4f} ms by {b_by} "
+        f"ms/call){floor_txt}, plain {plain_ms:.3f} ms/call; bound {b_ms:.4f} ms by {b_by} "
         f"(bytes {nb} -> {bytes_ms:.4f} ms, ops -> {ops_ms:.4f} ms); on {smi}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return out
 
 
 def npc_step_inputs(name, root_free, B, seed):
@@ -266,27 +297,36 @@ def fk_state(m, B, seed):
     return [torch.as_tensor(a.astype(np.float32), device="cuda") for a in arrs]
 
 
+def fk_geometry_txt(m, B):
+    ns = len(m.sph_tags)
+    R = fused_step.fk_robots_per_block(fused_step.lanes_log2(m), ns, B)
+    return f"{R} robots a block, {-(-B // R)} blocks, {fused_step.fk_shared_bytes(R, ns)} B shared"
+
+
 def phase_fk(smi):
     go1 = go1_model()
     B = 8192
-    args = fk_state(go1, B, seed=5)
-    ref = soa.fk_spheres(go1, *args)
-    out = fused_step.fk_spheres_kernel(go1, *args)
-    torch.cuda.synchronize()
     names, tols = ("sph_x", "sph_v"), (FK_TOL, FK_TOL)
-    max_err = compare("fk", f"go1 B={B}", ref, out, names, tols)
-    for name in ("seesaw", "ball"):
-        m = load_model(name, root_free=True)
-        a = fk_state(m, 37, seed=6)
-        compare("fk", f"{name} B=37", soa.fk_spheres(m, *a), fused_step.fk_spheres_kernel(m, *a),
-                names, tols)
-
+    max_err = 0.0
+    for name, sizes in (("go1", (B, 37, 1)), ("seesaw", (37, 1)), ("ball", (37, 1))):
+        m = go1 if name == "go1" else load_model(name, root_free=True)
+        for b in sizes:
+            a = fk_state(m, b, seed=5 if b == B else 6)
+            out = fused_step.fk_spheres_kernel(m, *a)
+            torch.cuda.synchronize()
+            max_err = max(max_err, compare("fk", f"{name} B={b} ({fk_geometry_txt(m, b)})",
+                                           soa.fk_spheres(m, *a), out, names, tols))
+    args = fk_state(go1, B, seed=5)
+    out = fused_step.fk_spheres_kernel(go1, *args)
+    one = fk_state(go1, 1, seed=6)
+    one_out = fused_step.fk_spheres_kernel(go1, *one)
     return dict(
         name="fk_spheres_kernel", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
         replaces="mqe_tpu/physics/soa.py:546", max_abs_err=max_err, library_ms=None,
         **timing("fk", f"go1 B={B}", lambda: fused_step.launch_fk(go1, *args, *out),
                  "fk_spheres_kernel", lambda: fused_step.fk_spheres_kernel(go1, *args),
-                 lambda: soa.fk_spheres(go1, *args), args, out, smi),
+                 lambda: soa.fk_spheres(go1, *args), args, out, smi,
+                 floor=lambda: fused_step.launch_fk(go1, *one, *one_out)),
     )
 
 
@@ -294,22 +334,32 @@ FK_FULL_NAMES = ("Rw", "pw", "vw", "sph_x", "sph_v")
 
 
 def phase_fk_full(smi):
-    """The full FK of the NPCs at the slices' shape: B = 4096 boxes (free)
-    and welded seesaws. The JSON entry carries the box's numbers, the
-    go1pushbox slice's; the seesaw's are printed."""
+    """The full FK of the NPCs at the slices' shape, B = 4096 boxes (free)
+    and welded seesaws, and at ragged and small B; the ball at 37 and 1.
+    The JSON entry carries the box's numbers, the go1pushbox slice's; the
+    seesaw's are under "seesaw"."""
     B = 4096
     entry, worst = {}, 0.0
-    for name, root_free in (("box", True), ("seesaw", False)):
+    for name, root_free, sizes in (("box", True, (B, 4095, 37, 1)),
+                                   ("seesaw", False, (B, 4095, 37, 1)), ("ball", True, (37, 1))):
         m = load_model(name, root_free=root_free)
+        for b in sizes:
+            a = fk_state(m, b, seed=5)
+            out = fused_step.fk_full_kernel(m, *a)
+            torch.cuda.synchronize()
+            worst = max(worst, compare("fk_full", f"{name} B={b} ({fk_geometry_txt(m, b)})",
+                                       soa.fk_full(m, *a), out, FK_FULL_NAMES, (FK_TOL,) * 5))
+        if name == "ball":
+            continue
         args = fk_state(m, B, seed=5)
         out = fused_step.fk_full_kernel(m, *args)
-        torch.cuda.synchronize()
-        worst = max(worst, compare("fk_full", f"{name} B={B}", soa.fk_full(m, *args), out,
-                                   FK_FULL_NAMES, (FK_TOL,) * 5))
+        one = fk_state(m, 1, seed=5)
+        one_out = fused_step.fk_full_kernel(m, *one)
         t = timing("fk_full", f"{name} B={B}",
                    lambda: fused_step.launch_fk_full(m, *args, out), "fk_full_kernel",
                    lambda: fused_step.fk_full_kernel(m, *args),
-                   lambda: soa.fk_full(m, *args), args, out, smi)
+                   lambda: soa.fk_full(m, *args), args, out, smi,
+                   floor=lambda: fused_step.launch_fk_full(m, *one, one_out))
         if name == "box":
             entry.update(t)
         else:
@@ -415,11 +465,19 @@ def main():
     built = fused_step.library()
     say("build", f"fused_step in {built.seconds:.2f} s ({'from the cache' if built.from_cache else 'built'}): "
         f"{built.path}")
-    for line in built.ptxas_log.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill", "stack frame")):
-            say("build", "ptxas " + line.strip())
+    ptxas = ptxas_usage(built.ptxas_log)
+    for name, use in ptxas.items():
+        say("build", f"ptxas {name}: {use['registers']} registers, {use['stack']} B stack, "
+            f"{use['spill_stores']} B spill stores, {use['spill_loads']} B spill loads")
+    if set(ptxas) != set(KERNELS):
+        raise AssertionError(f"ptxas reported {sorted(ptxas)}, expected {sorted(KERNELS)}")
+    step = ptxas["fused_step_kernel"]
+    if step["stack"] or step["spill_stores"] or step["spill_loads"]:
+        raise AssertionError(f"fused_step_kernel has a stack frame or spills: {step}")
 
     entries = [phase_kernel(smi), phase_fk(smi), phase_fk_full(smi)]
+    for entry in entries:
+        entry["ptxas"] = ptxas[entry["name"]]
     for task in ("go1gate", "go1plane", "go1pushbox", "go1seesaw"):
         phase_check(task)
     by_task = {task: phase_slice(smi, task) for task in SLICES}

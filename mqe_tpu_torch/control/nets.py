@@ -60,14 +60,15 @@ def _npz(name_or_path):
 
 class ActuatorNet(nn.Module):
     """Unitree go1 actuator model: (joint err x3 hist, joint vel x3 hist) ->
-    torque, evaluated per joint (ref go1.py:369-380)."""
+    torque, evaluated per joint (ref go1.py:369-380). With no `mlp` it loads
+    the committed weights onto `device`."""
 
-    def __init__(self, mlp: MLP | None = None):
+    def __init__(self, mlp: MLP | None = None, device="cuda"):
         super().__init__()
         if mlp is None:
             from mqe_tpu_torch.utils.convert import mlp_from_numpy
 
-            mlp = mlp_from_numpy(_npz("actuator_go1.npz"))
+            mlp = mlp_from_numpy(_npz("actuator_go1.npz"), device=device)
         self.mlp = mlp
 
     def forward(self, err, err_last, err_last_last, vel, vel_last, vel_last_last):
@@ -89,9 +90,10 @@ class BodyPolicy(nn.Module):
         return self.prescale * torch.tanh(self.mlp(obs))
 
 
-def load_body_policy(path) -> BodyPolicy:
-    """Body policy from a trainer npz (flax `params/actor/Dense_i/kernel` (in,
-    out) and `bias` entries, optional `meta_prescale`, default 4.0)."""
+def load_body_policy(path, device="cuda") -> BodyPolicy:
+    """Body policy on `device` from a trainer npz (flax
+    `params/actor/Dense_i/kernel` (in, out) and `bias` entries, optional
+    `meta_prescale`, default 4.0)."""
     from mqe_tpu_torch.utils.convert import mlp_from_numpy
 
     d = _npz(path)
@@ -101,4 +103,4 @@ def load_body_policy(path) -> BodyPolicy:
         params[f"b{i}"] = d[f"params/actor/Dense_{i}/bias"]
         i += 1
     prescale = float(d["meta_prescale"]) if "meta_prescale" in d else 4.0
-    return BodyPolicy(mlp_from_numpy(params), prescale)
+    return BodyPolicy(mlp_from_numpy(params, device=device), prescale)

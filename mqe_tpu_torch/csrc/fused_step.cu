@@ -23,7 +23,7 @@
 // Every device function is named after the soa.py function it mirrors and
 // keeps its order of operations.
 //
-// Design. A robot gets `lanes` consecutive threads of a warp, the smallest
+// Design of the step kernel. A robot gets `lanes` consecutive threads of a warp, the smallest
 // power of two >= nb (16 for go1's 13 bodies, so two robots a warp; 2 for
 // the one-joint NPC models, 1 for a free body). Lane i owns body i and keeps
 // its per-body quantities (poses, velocity, the 6x6 articulated inertia
@@ -51,8 +51,32 @@
 // tests/test_torch_soa.py::test_fk_matches_jax by 1.19e-6 in sph_v.)
 //
 // Model constants are not compiled in: they come from one float32 table per
-// model (physics/model.py::model_tables, offsets below), copied into shared
-// memory by each block, so one build serves go1 and the NPC models.
+// model (physics/model.py::model_tables, offsets below), so one build serves
+// go1 and the NPC models. The step kernel copies the whole table into shared
+// memory in each block; the FK kernels read only their fields of it (see
+// below).
+//
+// Design of the FK kernels, in three phases a block:
+//   1. one lane per body, as in the step kernel (`fk_levels`, the same
+//      device code): the tree walked level by level, each body's Rw, pw, v
+//      and its world velocity left in its slot. The lanes read the table's
+//      FK fields (parent, level, joint frames and axes, sphere bodies and
+//      offsets: ~550 of its 1,664 floats) through the read-only data path,
+//      where they stay in L1; there is no block copy of the table and no
+//      block barrier before the walk.
+//   2. after one __syncthreads(), the block's (robot, sphere) pairs are
+//      spread over all its threads in order (thread t takes pairs t,
+//      t + 128, ...), so no lane loops over all ns spheres and a body with
+//      many spheres (go1's base has 8 of 40) holds up no warp. Each pair's
+//      x and v go to a staging area in shared memory.
+//   3. after a second __syncthreads(), the block writes its contiguous span
+//      of sph_x and sph_v (and fk_full its Rw, pw, vw rows, straight from
+//      the slots) with consecutive threads on consecutive floats.
+// A block takes `robots_per_block` robots, a launch parameter that the
+// wrapper chooses (physics/fused_step.py::fk_robots_per_block): full blocks for
+// go1's robots, fewer robots a block for the NPC launches so that B = 4096
+// spreads over about four blocks an SM (512 blocks of 8 robots, where one
+// robot a lane gave 32 and 64 blocks).
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 without tensor
 // cores), at the go1gate slice (B = 8192 robots):
@@ -67,7 +91,10 @@
 //     4.3 MB, 1.3 us. Bound by bytes, like fk_spheres; the same design.
 // What the design does about the bound: each byte is read once and written
 // once with neighbouring lanes on neighbouring addresses, and the tree's
-// arithmetic runs on 13 lanes a robot instead of one thread.
+// arithmetic runs on 13 lanes a robot instead of one thread. At the NPC
+// launches the bytes take less time than a launch; there the FK kernels aim
+// at latency: no table copy and barrier ahead of the walk, enough blocks to
+// occupy every SM, each thread a few spheres.
 
 #include <cuda_runtime.h>
 
@@ -100,8 +127,10 @@
 // floats of a thread's exchange slot in shared memory, stored field-major
 // (field f of slot k at f * THREADS + k: the lanes of a warp hit distinct
 // banks)
-#define FK_FIELDS 18    // Rw 9, pw 3, v 6
-#define STEP_FIELDS 42  // ABA: X^T Ia X 36, X^T pa 6 (also holds the FK's 18)
+#define FK_FIELDS 24    // fk_levels' Rw 9, pw 3, v 6; then world velocity ww 3, vw 3
+#define STEP_FIELDS 42  // ABA: X^T Ia X 36, X^T pa 6 (also holds fk_levels' 18)
+// a block's shared memory without opting in to more
+#define SHARED_LIMIT (48 * 1024)
 
 struct V3 { float x, y, z; };
 struct M3 { float a[3][3]; };
@@ -491,36 +520,93 @@ DEV Kin fk_levels(const float* T, float* S, const Lane& L, int depth, const Body
 // fk_full: soa.fk_full -> Rw (B, nb, 3, 3), pw (B, nb, 3), vw (B, nb, 6), sph_x, sph_v
 // ---------------------------------------------------------------------------
 
-// _body_vels' world velocity (angular, linear) of the lane's body, then
-// _spheres for the body's spheres; with `Rw_o` non-null also the body's
-// world pose and velocity (fk_full's packing).
-DEV void fk_outputs(const float* T, const Lane& L, const Kin& k, int nb, int ns,
-                    float* __restrict__ Rw_o, float* __restrict__ pw_o,
-                    float* __restrict__ vw_o, float* __restrict__ sph_x,
-                    float* __restrict__ sph_v) {
-  const V3 ww = m_vec(k.Rw, k.v.w), vw = m_vec(k.Rw, k.v.v);
-  if (Rw_o != nullptr) {
-    const long long r = L.b * nb + L.body;
-    float* R = Rw_o + r * 9;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) R[i * 3 + j] = k.Rw.a[i][j];
-    float* p = pw_o + r * 3;
-    p[0] = k.pw.x; p[1] = k.pw.y; p[2] = k.pw.z;
-    float* v = vw_o + r * 6;
-    v[0] = ww.x; v[1] = ww.y; v[2] = ww.z;
-    v[3] = vw.x; v[4] = vw.y; v[5] = vw.z;
+// Bytes of shared memory an FK block takes: the slots, then the staged
+// sph_x and sph_v of its robots.
+__host__ __device__ inline int fk_shared_bytes_(int rpb, int ns) {
+  return (FK_FIELDS * THREADS + 6 * rpb * ns) * (int)sizeof(float);
+}
+
+// The FK kernels' lane: robot threadIdx.x >> lanes_log2 of the block's
+// `rpb`; `depth` the tree's depth. Table fields come through the read-only
+// path (__ldg).
+DEV Lane fk_lane(const float* __restrict__ T, int B, int nb, int lanes_log2, int rpb,
+                 int* depth) {
+  Lane L;
+  const int r = threadIdx.x >> lanes_log2;
+  L.body = threadIdx.x & ((1 << lanes_log2) - 1);
+  L.b = (long long)blockIdx.x * rpb + r;
+  L.slot = threadIdx.x;
+  L.root = threadIdx.x - L.body;
+  L.active = r < rpb && L.b < B && L.body < nb;
+  L.level = L.body < nb ? (int)__ldg(T + T_LEVEL + L.body) : 0;
+  L.par = L.body < nb ? (int)__ldg(T + T_PARENT + L.body) : -1;
+  int d = 0;
+  for (int i = 0; i < nb; ++i) d = max(d, (int)__ldg(T + T_LEVEL + i));
+  *depth = d;
+  return L;
+}
+
+// fk_full's pose and velocity rows: `nf` fields from f0 of each (robot, body)
+// slot to the block's rows of `out`, consecutive threads on consecutive floats.
+DEV void fk_rows(float* __restrict__ out, const float* S, int f0, int nf, int nr, int nb,
+                 int lanes_log2) {
+  for (int e = threadIdx.x; e < nr * nb * nf; e += THREADS) {
+    const int rb = e / nf, f = e - rb * nf;
+    const int r = rb / nb, i = rb - r * nb;
+    out[e] = get(S, (r << lanes_log2) + i, f0 + f);
   }
-  for (int s = 0; s < ns; ++s) {
-    if ((int)T[T_SBODY + s] != L.body) continue;
-    const V3 off = v_load(T + T_SPOS + 3 * s);
-    const V3 x = v_add(k.pw, m_vec(k.Rw, off));
-    const V3 vel = v_add(vw, v_cross(ww, v_sub(x, k.pw)));
-    float* xo = sph_x + (L.b * ns + s) * 3;
-    float* vo = sph_v + (L.b * ns + s) * 3;
-    xo[0] = x.x; xo[1] = x.y; xo[2] = x.z;
-    vo[0] = vel.x; vo[1] = vel.y; vo[2] = vel.z;
+}
+
+// One block of either FK kernel; `Rw_o` null for fk_spheres.
+DEV void fk_block(float* smem, const float* __restrict__ pos, const float* __restrict__ quat,
+                  const float* __restrict__ lin_vel, const float* __restrict__ ang_vel,
+                  const float* __restrict__ q, const float* __restrict__ qd,
+                  float* __restrict__ Rw_o, float* __restrict__ pw_o, float* __restrict__ vw_o,
+                  float* __restrict__ sph_x, float* __restrict__ sph_v,
+                  const float* __restrict__ T, int B, int nb, int nq, int ns, int lanes_log2,
+                  int rpb) {
+  float* S = smem;                            // the slots, FK_FIELDS * THREADS
+  float* X = smem + FK_FIELDS * THREADS;      // staged sph_x, rpb * ns * 3
+  float* V = X + rpb * ns * 3;                // staged sph_v
+  const long long b0 = (long long)blockIdx.x * rpb;
+  const int nr = (int)min((long long)rpb, (long long)B - b0);
+
+  // ---- phase 1: _fk + _body_vels, one lane a body ----
+  int depth;
+  const Lane L = fk_lane(T, B, nb, lanes_log2, rpb, &depth);
+  const BodyIn in = load_body(L, nq, pos, quat, lin_vel, ang_vel, q, qd);
+  const Kin k = fk_levels(T, S, L, depth, in);
+  if (L.active) {  // _body_vels' world velocity (angular, linear)
+    put_v(S, L.slot, 18, m_vec(k.Rw, k.v.w));
+    put_v(S, L.slot, 21, m_vec(k.Rw, k.v.v));
+  }
+  __syncthreads();
+
+  // ---- phase 2: _spheres, the block's (robot, sphere) pairs in order ----
+  for (int p = threadIdx.x; p < nr * ns; p += THREADS) {
+    const int r = p / ns, s = p - r * ns;
+    const int slot = (r << lanes_log2) + (int)__ldg(T + T_SBODY + s);
+    const M3 Rw = get_m(S, slot, 0);
+    const V3 pw = get_v(S, slot, 9), ww = get_v(S, slot, 18), vw = get_v(S, slot, 21);
+    const V3 off = v3(__ldg(T + T_SPOS + 3 * s), __ldg(T + T_SPOS + 3 * s + 1),
+                      __ldg(T + T_SPOS + 3 * s + 2));
+    const V3 x = v_add(pw, m_vec(Rw, off));
+    const V3 vel = v_add(vw, v_cross(ww, v_sub(x, pw)));
+    X[3 * p] = x.x; X[3 * p + 1] = x.y; X[3 * p + 2] = x.z;
+    V[3 * p] = vel.x; V[3 * p + 1] = vel.y; V[3 * p + 2] = vel.z;
+  }
+  if (Rw_o != nullptr) {  // fk_full's rows need only the slots
+    fk_rows(Rw_o + b0 * nb * 9, S, 0, 9, nr, nb, lanes_log2);
+    fk_rows(pw_o + b0 * nb * 3, S, 9, 3, nr, nb, lanes_log2);
+    fk_rows(vw_o + b0 * nb * 6, S, 18, 6, nr, nb, lanes_log2);
+  }
+  __syncthreads();
+
+  // ---- phase 3: the block's span of sph_x and sph_v ----
+  const long long o = b0 * ns * 3;
+  for (int e = threadIdx.x; e < nr * ns * 3; e += THREADS) {
+    sph_x[o + e] = X[e];
+    sph_v[o + e] = V[e];
   }
 }
 
@@ -530,15 +616,10 @@ fk_spheres_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
                   const float* __restrict__ q, const float* __restrict__ qd,
                   float* __restrict__ sph_x, float* __restrict__ sph_v,
                   const float* __restrict__ tables, int B, int nb, int nq, int ns,
-                  int lanes_log2) {
-  __shared__ float T[TABLE_SIZE];
-  __shared__ float S[FK_FIELDS * THREADS];
-  int depth;
-  const Lane L = lane_setup(T, tables, B, nb, lanes_log2, &depth);
-  const BodyIn in = load_body(L, nq, pos, quat, lin_vel, ang_vel, q, qd);
-  const Kin k = fk_levels(T, S, L, depth, in);
-  if (!L.active) return;
-  fk_outputs(T, L, k, nb, ns, nullptr, nullptr, nullptr, sph_x, sph_v);
+                  int lanes_log2, int rpb) {
+  extern __shared__ float smem[];
+  fk_block(smem, pos, quat, lin_vel, ang_vel, q, qd, nullptr, nullptr, nullptr, sph_x, sph_v,
+           tables, B, nb, nq, ns, lanes_log2, rpb);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -548,15 +629,10 @@ fk_full_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
                float* __restrict__ Rw_o, float* __restrict__ pw_o, float* __restrict__ vw_o,
                float* __restrict__ sph_x, float* __restrict__ sph_v,
                const float* __restrict__ tables, int B, int nb, int nq, int ns,
-               int lanes_log2) {
-  __shared__ float T[TABLE_SIZE];
-  __shared__ float S[FK_FIELDS * THREADS];
-  int depth;
-  const Lane L = lane_setup(T, tables, B, nb, lanes_log2, &depth);
-  const BodyIn in = load_body(L, nq, pos, quat, lin_vel, ang_vel, q, qd);
-  const Kin k = fk_levels(T, S, L, depth, in);
-  if (!L.active) return;
-  fk_outputs(T, L, k, nb, ns, Rw_o, pw_o, vw_o, sph_x, sph_v);
+               int lanes_log2, int rpb) {
+  extern __shared__ float smem[];
+  fk_block(smem, pos, quat, lin_vel, ang_vel, q, qd, Rw_o, pw_o, vw_o, sph_x, sph_v,
+           tables, B, nb, nq, ns, lanes_log2, rpb);
 }
 
 // ---------------------------------------------------------------------------
@@ -826,13 +902,30 @@ extern "C" int fused_step_launch(const float* pos, const float* quat, const floa
   return (int)cudaGetLastError();
 }
 
+// The FK launches' grid for `rpb` robots a block, or 0 (and *rc) when the
+// geometry is one the kernels do not take.
+static int fk_grid(int B, int nb, int ns, int lanes_log2, int rpb, int* rc) {
+  if (rpb < 1 || (rpb << lanes_log2) > THREADS || nb > (1 << lanes_log2) ||
+      fk_shared_bytes_(rpb, ns) > SHARED_LIMIT) {
+    *rc = (int)cudaErrorInvalidValue;
+    return 0;
+  }
+  *rc = 0;
+  return (B + rpb - 1) / rpb;
+}
+
+extern "C" int fk_shared_bytes(int rpb, int ns) { return fk_shared_bytes_(rpb, ns); }
+
 extern "C" int fk_spheres_launch(const float* pos, const float* quat, const float* lin_vel,
                                  const float* ang_vel, const float* q, const float* qd,
                                  float* sph_x, float* sph_v, const float* tables, int B,
-                                 int nb, int nq, int ns, int lanes_log2, void* stream) {
+                                 int nb, int nq, int ns, int lanes_log2, int rpb, void* stream) {
   if (B <= 0) return 0;
-  fk_spheres_kernel<<<grid_for(B, lanes_log2), THREADS, 0, (cudaStream_t)stream>>>(
-      pos, quat, lin_vel, ang_vel, q, qd, sph_x, sph_v, tables, B, nb, nq, ns, lanes_log2);
+  int rc;
+  const int grid = fk_grid(B, nb, ns, lanes_log2, rpb, &rc);
+  if (rc != 0) return rc;
+  fk_spheres_kernel<<<grid, THREADS, fk_shared_bytes_(rpb, ns), (cudaStream_t)stream>>>(
+      pos, quat, lin_vel, ang_vel, q, qd, sph_x, sph_v, tables, B, nb, nq, ns, lanes_log2, rpb);
   return (int)cudaGetLastError();
 }
 
@@ -840,10 +933,13 @@ extern "C" int fk_full_launch(const float* pos, const float* quat, const float* 
                               const float* ang_vel, const float* q, const float* qd,
                               float* Rw, float* pw, float* vw, float* sph_x, float* sph_v,
                               const float* tables, int B, int nb, int nq, int ns,
-                              int lanes_log2, void* stream) {
+                              int lanes_log2, int rpb, void* stream) {
   if (B <= 0) return 0;
-  fk_full_kernel<<<grid_for(B, lanes_log2), THREADS, 0, (cudaStream_t)stream>>>(
+  int rc;
+  const int grid = fk_grid(B, nb, ns, lanes_log2, rpb, &rc);
+  if (rc != 0) return rc;
+  fk_full_kernel<<<grid, THREADS, fk_shared_bytes_(rpb, ns), (cudaStream_t)stream>>>(
       pos, quat, lin_vel, ang_vel, q, qd, Rw, pw, vw, sph_x, sph_v, tables, B, nb, nq, ns,
-      lanes_log2);
+      lanes_log2, rpb);
   return (int)cudaGetLastError();
 }

@@ -191,7 +191,7 @@ class Go1Env:
         self.term_sph = self.robot.sphere_mask(cfg.asset.terminate_after_contacts_on)
 
         # ---- control backends ----
-        self.actuator = ActuatorNet().to(dev)
+        self.actuator = ActuatorNet(device=dev)
         self.backend = cfg.control.locomotion_backend
         self.trot = TrotController(
             body_height=0.28,
@@ -203,7 +203,7 @@ class Go1Env:
         # controller when its weights are there
         bp = os.path.join(ASSETS_DIR, "body_policy.npz")
         self.body_policy = (
-            load_body_policy(bp).to(dev)
+            load_body_policy(bp, device=dev)
             if self.backend == "residual" and os.path.exists(bp) else None
         )
 

@@ -4,8 +4,9 @@
 (mqe_tpu/physics/pallas_step.py), the TPU kernel it replaces, and returns what
 `soa.step_actor` returns; `fk_spheres_kernel` and `fk_full_kernel` return what
 `soa.fk_spheres` and `soa.fk_full` return. All three are entry points of
-csrc/fused_step.cu (one lane per body, see its header). For CUDA tensors a wrapper launches its kernel on PyTorch's
-current stream, reading the (B, k) state tensors in place and writing
+csrc/fused_step.cu (one lane per body, see its header); the FK launches'
+geometry, robots a block, is chosen here (`fk_robots_per_block`). For CUDA
+tensors a wrapper launches its kernel on PyTorch's current stream, reading the (B, k) state tensors in place and writing
 outputs it allocates; for CPU tensors it runs the plain version; on any other
 device it raises. Inputs are checked on every device, so the CPU tests hold
 the callers to what the kernels take: float32, contiguous, the model's shapes.
@@ -43,14 +44,16 @@ def library():
     lib.fused_step_launch.restype = _c_int
     lib.fk_spheres_launch.argtypes = (
         [_c_ptr] * 6 + [_c_ptr] * 2 + [_c_ptr]       # pos .. qd, sph_x, sph_v, tables
-        + [_c_int] * 5 + [_c_ptr]                    # B, nb, nq, ns, lanes_log2, stream
+        + [_c_int] * 6 + [_c_ptr]                    # B, nb, nq, ns, lanes_log2, rpb, stream
     )
     lib.fk_spheres_launch.restype = _c_int
     lib.fk_full_launch.argtypes = (
         [_c_ptr] * 6 + [_c_ptr] * 5 + [_c_ptr]       # pos .. qd, Rw .. sph_v, tables
-        + [_c_int] * 5 + [_c_ptr]                    # B, nb, nq, ns, lanes_log2, stream
+        + [_c_int] * 6 + [_c_ptr]                    # B, nb, nq, ns, lanes_log2, rpb, stream
     )
     lib.fk_full_launch.restype = _c_int
+    lib.fk_shared_bytes.argtypes = [_c_int, _c_int]
+    lib.fk_shared_bytes.restype = _c_int
     nb, ns = _c_int(), _c_int()
     lib.fused_step_max_sizes(ctypes.byref(nb), ctypes.byref(ns))
     if (lib.fused_step_table_size(), nb.value, ns.value) != (TABLE_SIZE, MAX_NB, MAX_NS):
@@ -58,6 +61,12 @@ def library():
             "csrc/fused_step.cu and physics/model.py disagree on the model "
             f"table: kernel ({lib.fused_step_table_size()}, {nb.value}, {ns.value}) "
             f"vs python ({TABLE_SIZE}, {MAX_NB}, {MAX_NS})"
+        )
+    if lib.fk_shared_bytes(8, MAX_NS) != fk_shared_bytes(8, MAX_NS):
+        raise RuntimeError(
+            "csrc/fused_step.cu and physics/fused_step.py disagree on an FK block's "
+            f"shared memory: {lib.fk_shared_bytes(8, MAX_NS)} vs "
+            f"{fk_shared_bytes(8, MAX_NS)} bytes"
         )
     return built
 
@@ -79,6 +88,38 @@ def tables_for(model: BodyModel, device) -> torch.Tensor:
 def lanes_log2(model: BodyModel) -> int:
     """log2 of the lanes a robot gets: the smallest power of two >= nb."""
     return (model.nb - 1).bit_length()
+
+
+THREADS = 128             # threads a block (csrc/fused_step.cu THREADS)
+FK_FIELDS = 24            # floats of a body's slot in an FK block (FK_FIELDS there)
+SHARED_LIMIT = 48 * 1024  # a block's shared memory without opting in to more
+# blocks an FK launch keeps where B allows: about four on each of the H100's
+# 132 SMs (tools/sweep_fk_geometry.py: of 1 to 128 robots a block, 8 gave
+# the least time to both NPC launches at B = 4096)
+FK_MIN_BLOCKS = 512
+
+
+def fk_shared_bytes(robots_per_block: int, ns: int) -> int:
+    """Shared memory of an FK block: the slots, and its spheres' staged x, v."""
+    return (FK_FIELDS * THREADS + 6 * robots_per_block * ns) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def fk_robots_per_block(lanes_log2: int, ns: int, B: int) -> int:
+    """The robots each block of an FK launch takes, for B robots of
+    2**lanes_log2 lanes and ns spheres; the launch has ceil(B / robots)
+    blocks of THREADS threads, the last with fewer robots.
+
+    As many robots a block as its threads hold and its shared memory takes
+    (full blocks: go1's 8 robots of 16 lanes), but no more than keeps the
+    grid at FK_MIN_BLOCKS blocks where B allows: an NPC launch of 4096
+    robots of one or two lanes would fill only 32 or 64 blocks otherwise
+    (it takes 512 blocks of 8 robots).
+    """
+    robots = THREADS >> lanes_log2
+    while robots > 1 and fk_shared_bytes(robots, ns) > SHARED_LIMIT:
+        robots -= 1
+    return max(1, min(robots, B // FK_MIN_BLOCKS))
 
 
 def _check(fn: str, expect: dict) -> torch.device:
@@ -179,15 +220,23 @@ def step_actor_kernel(
 step_actor_kernel.launches = 0  # kernel launches since the last reset to 0
 
 
-def launch_fk(model, pos, quat, lin_vel, ang_vel, q, qd, sph_x, sph_v):
-    """Launch the sphere-FK kernel on checked CUDA tensors into sph_x, sph_v;
-    counts the launch."""
+def _fk_launch_args(model, pos, robots_per_block):
+    """The trailing arguments of both FK launches: tables, sizes, geometry, stream."""
+    B, ns, ll = pos.shape[0], len(model.sph_tags), lanes_log2(model)
+    if robots_per_block is None:
+        robots_per_block = fk_robots_per_block(ll, ns, B)
+    return (tables_for(model, pos.device).data_ptr(), B, model.nb, model.nq, ns, ll,
+            robots_per_block, torch.cuda.current_stream(pos.device).cuda_stream)
+
+
+def launch_fk(model, pos, quat, lin_vel, ang_vel, q, qd, sph_x, sph_v, robots_per_block=None):
+    """Launch the sphere-FK kernel on checked CUDA tensors into sph_x, sph_v,
+    at `fk_robots_per_block`'s robots a block unless given; counts the
+    launch."""
     rc = library().lib.fk_spheres_launch(
         pos.data_ptr(), quat.data_ptr(), lin_vel.data_ptr(), ang_vel.data_ptr(),
         q.data_ptr(), qd.data_ptr(), sph_x.data_ptr(), sph_v.data_ptr(),
-        tables_for(model, pos.device).data_ptr(),
-        pos.shape[0], model.nb, model.nq, len(model.sph_tags), lanes_log2(model),
-        torch.cuda.current_stream(pos.device).cuda_stream,
+        *_fk_launch_args(model, pos, robots_per_block),
     )
     _raise_on(rc, "fk_spheres")
     fk_spheres_kernel.launches += 1
@@ -210,15 +259,14 @@ def fk_spheres_kernel(model: BodyModel, pos, quat, lin_vel, ang_vel, q, qd):
 fk_spheres_kernel.launches = 0  # kernel launches since the last reset to 0
 
 
-def launch_fk_full(model, pos, quat, lin_vel, ang_vel, q, qd, out):
+def launch_fk_full(model, pos, quat, lin_vel, ang_vel, q, qd, out, robots_per_block=None):
     """Launch the full-FK kernel on checked CUDA tensors into `out`, the five
-    output tensors; counts the launch."""
+    output tensors, at `fk_robots_per_block`'s robots a block unless given;
+    counts the launch."""
     rc = library().lib.fk_full_launch(
         pos.data_ptr(), quat.data_ptr(), lin_vel.data_ptr(), ang_vel.data_ptr(),
         q.data_ptr(), qd.data_ptr(), *(t.data_ptr() for t in out),
-        tables_for(model, pos.device).data_ptr(),
-        pos.shape[0], model.nb, model.nq, len(model.sph_tags), lanes_log2(model),
-        torch.cuda.current_stream(pos.device).cuda_stream,
+        *_fk_launch_args(model, pos, robots_per_block),
     )
     _raise_on(rc, "fk_full")
     fk_full_kernel.launches += 1

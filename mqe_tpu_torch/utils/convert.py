@@ -15,9 +15,10 @@ from mqe_tpu_torch.control.nets import MLP
 from mqe_tpu_torch.utils.tree import tree_map
 
 
-def mlp_from_numpy(params, device=None) -> MLP:
-    """MLP from {w0, b0, w1, b1, ..., activation}: w_i is (out, in) as in the
-    npz assets (the JAX package transposes it to (in, out) when loading)."""
+def mlp_from_numpy(params, device="cuda") -> MLP:
+    """MLP on `device` from {w0, b0, w1, b1, ..., activation}: w_i is (out, in)
+    as in the npz assets (the JAX package transposes it to (in, out) when
+    loading)."""
     n = 0
     while f"w{n}" in params:
         n += 1
@@ -31,15 +32,15 @@ def mlp_from_numpy(params, device=None) -> MLP:
         for layer, w, b in zip(mlp.layers, ws, bs):
             layer.weight.copy_(torch.from_numpy(w))
             layer.bias.copy_(torch.from_numpy(b))
-    return mlp.to(device) if device is not None else mlp
+    return mlp.to(device)
 
 
 def _tensor(x, device):
     return torch.as_tensor(np.array(x), device=device)
 
 
-def env_state_from_numpy(tree, device="cpu"):
-    """Port EnvState / TaskState from a JAX one with numpy leaves."""
+def env_state_from_numpy(tree, device="cuda"):
+    """Port EnvState / TaskState on `device` from a JAX one with numpy leaves."""
     from mqe_tpu_torch.envs.go1_env import EnvState
     from mqe_tpu_torch.envs.wrappers import TaskState
     from mqe_tpu_torch.physics.scene import ActorState, DomainRand, PhysState

@@ -85,18 +85,18 @@ def test_actuator_net_matches_jax():
     for i, (w, b) in enumerate(zip(jnet.params["w"], jnet.params["b"])):
         params[f"w{i}"] = np.asarray(w).T     # (in, out) -> (out, in)
         params[f"b{i}"] = np.asarray(b)
-    tnet = tn.ActuatorNet(mlp_from_numpy(params))
+    tnet = tn.ActuatorNet(mlp_from_numpy(params, device="cpu"))
     ins = [_f32(5, 2, 12, scale=0.3) for _ in range(3)] + [_f32(5, 2, 12, scale=3.0) for _ in range(3)]
     _cmp(jnet(*[jnp.asarray(x) for x in ins]), tnet(*[torch.from_numpy(x) for x in ins]), 1e-4)
     # the port's own loader reads the same weights
-    for a, b in zip(tnet.parameters(), tn.ActuatorNet().parameters()):
+    for a, b in zip(tnet.parameters(), tn.ActuatorNet(device="cpu").parameters()):
         assert torch.equal(a, b)
 
 
 def test_body_policy_matches_jax():
     path = f"{ASSETS_DIR}/body_policy.npz"
     japply = jn.load_body_policy(path)
-    tpol = tn.load_body_policy(path)
+    tpol = tn.load_body_policy(path, device="cpu")
     d = np.load(path)
     params, i = {"activation": "elu"}, 0
     while f"params/actor/Dense_{i}/kernel" in d:
@@ -104,7 +104,7 @@ def test_body_policy_matches_jax():
         params[f"b{i}"] = d[f"params/actor/Dense_{i}/bias"]
         i += 1
     prescale = float(d["meta_prescale"]) if "meta_prescale" in d else 4.0
-    carried = tn.BodyPolicy(mlp_from_numpy(params), prescale)
+    carried = tn.BodyPolicy(mlp_from_numpy(params, device="cpu"), prescale)
     obs = _f32(6, 2, 70, scale=0.5)
     ref = japply(jnp.asarray(obs))
     _cmp(ref, tpol(torch.from_numpy(obs)), 1e-4)
@@ -113,4 +113,4 @@ def test_body_policy_matches_jax():
 
 def test_mlp_from_numpy_rejects_empty():
     with pytest.raises(ValueError):
-        mlp_from_numpy({"activation": "elu"})
+        mlp_from_numpy({"activation": "elu"}, device="cpu")

@@ -10,7 +10,10 @@ full-FK kernel's wrapper.
   go1pushbox scene (robots pressed against the box, the box on the ground),
   the go1seesaw scene (a robot on the plank, one against the pivot cylinder,
   one on the platform) and two balls on the pushbox terrain (NPC-NPC
-  pairs). The JAX side runs op by op (no jit).
+  pairs). The states and JAX's substep from them (op by op, no jit) are the
+  record tests/goldens/torch_npc_substep.npz, which
+  tools/make_torch_goldens.py writes; the `slow`
+  `test_substep_batch_with_npcs_matches_live_jax` compares with a live run.
 - `fk_full_kernel` on CPU tensors is `soa.fk_full` exactly; its wrapper
   raises on input the kernel does not take; `substep_batch` runs both FK
   kernels and the step kernel twice, the NPC launch with the reaction wrench
@@ -27,6 +30,8 @@ which has no JAX, `python -m pytest --noconftest tests/test_torch_npc.py -m
 cuda` runs them.
 """
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -39,6 +44,8 @@ from mqe_tpu_torch.physics.model import load_model
 
 torch.set_num_threads(1)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NPC_GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_npc_substep.npz")
 E = 2
 NAMES = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")
 TOLS = (1e-6, 1e-6, 1e-5, 1e-5, 1e-6, 1e-4)   # tests/test_pallas_step.py
@@ -156,144 +163,75 @@ def test_npc_prim_force_matches_jax(kind):
 # substep_batch with NPCs, from hand-placed states
 # ---------------------------------------------------------------------------
 
-def _agents(env, rng):
-    """Robot state (E, A, ...) standing at the agent origins, small noise."""
-    A = env.num_agents
-    pos = np.zeros((E, A, 3), np.float32)
-    pos[..., :2] = np.asarray(env.agent_origins)[..., :2]
-    pos[..., 2] = 0.30 + rng.randn(E, A) * 0.01
-    qt = rng.randn(E, A, 4) * 0.03 + np.array([0, 0, 0, 1.0])
-    return dict(pos=pos, quat=qt / np.linalg.norm(qt, axis=-1, keepdims=True),
-                lin_vel=rng.randn(E, A, 3) * 0.3, ang_vel=rng.randn(E, A, 3) * 0.3,
-                q=np.asarray(env.default_q) + rng.randn(E, A, 12) * 0.1,
-                qd=rng.randn(E, A, 12) * 0.5)
+NPC_CASES = ("pushbox", "seesaw", "two-balls")
 
 
-def _npcs(pos, qs, qds, rng):
-    N = pos.shape[1]
-    return dict(pos=pos, quat=np.tile([0, 0, 0, 1.0], (E, N, 1)),
-                lin_vel=rng.randn(E, N, 3) * 0.05, ang_vel=rng.randn(E, N, 3) * 0.05,
-                q=qs, qd=qds)
-
-
-def _pushbox_state(env, rng):
-    ag = _agents(env, rng)
-    eo = np.asarray(env.env_origins)
-    box = eo + np.array([2.5, 0.0, 0.49])                  # 1 cm into the ground
-    ag["pos"][0, 0] = box[0] + np.array([-0.76, 0.0, -0.19])  # head into the -x face
-    ag["pos"][1, 0] = box[1] + np.array([0.0, -0.53, -0.19])  # trunk into the -y face
-    z = np.zeros((E, 1, 0))
-    return ag, _npcs(box[:, None], z, z, rng)
-
-
-def _seesaw_state(env, rng):
-    ag = _agents(env, rng)
-    eo = np.asarray(env.env_origins)
-    pivot = eo + np.array([8.0, 0.0, 1.0])
-    qs, qds = np.full((E, 1, 1), -0.2), rng.randn(E, 1, 1) * 0.3
-    npc = _npcs(pivot[:, None], qs, qds, rng)
-    npc["lin_vel"][:] = 0.0                                 # a welded base
-    npc["ang_vel"][:] = 0.0
-    # a point on the plank's top face, from the plank's pose
-    m = load_model("seesaw", root_free=False)
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32).reshape(E, -1))
-    Rw, pw, _, _, _ = soa.fk_full(m, *(f32(npc[k]) for k in NAMES))
-    on_plank = lambda e, x: (pw[e, 1] + Rw[e, 1] @ torch.tensor([x, 0.0, 0.015])).numpy()
-    ag["pos"][0, 0] = on_plank(0, -1.0) + np.array([0.0, 0.0, 0.04])   # trunk on the plank
-    ag["pos"][0, 1] = pivot[0] + np.array([-0.46, 0.0, -0.6])          # head into the pivot
-    ag["pos"][1, 0] = on_plank(1, -1.6) + np.array([0.0, 0.0, 0.04])
-    ag["pos"][1, 1] = pivot[1] + np.array([0.0, 0.0, 0.055])           # on the platform
-    return ag, npc
-
-
-def _balls_state(env, rng):
-    ag = _agents(env, rng)
-    ag["pos"][1, 0, 2] = 0.2                                # env 1: a crouching robot
-    b0 = ag["pos"][:, 0] + np.array([0.27 + 0.11, 0.0, 0.0])  # at the head
-    b1 = b0 + np.array([0.15, 0.02, 0.0])                   # into ball 0
-    b1[1, 2] = 0.095                                        # env 1: on the ground
-    z = np.zeros((E, 2, 0))
-    return ag, _npcs(np.stack([b0, b1], axis=1), z, z, rng)
-
-
-NPC_CASES = {"pushbox": ("go1pushbox", None, _pushbox_state),
-             "seesaw": ("go1seesaw", None, _seesaw_state),
-             "two-balls": ("go1pushbox", "ball", _balls_state)}
-
-
-def _scenes(case, jax_side=True):
-    """(JAX env or None, port env, JAX scene, port scene) of one case."""
-    task, npc_name, _ = NPC_CASES[case]
-    twrap, _ = make_torch_env(task, num_envs=E, seed=0, device="cpu")
+def _port_scene(rec, case):
+    """(port env, port scene) of one recorded case: the task's, with its
+    NPC model replaced by two of the recorded one where one is named."""
+    twrap, _ = make_torch_env(str(rec[f"{case}/task"]), num_envs=E, seed=0, device="cpu")
     tenv = twrap.env
     tscene = tenv.scene
+    npc_name = str(rec[f"{case}/npc"])
     if npc_name:
         tscene = dataclasses.replace(tscene, npc=load_model(npc_name), num_npcs=2)
-    if not jax_side:
-        return None, tenv, None, tscene
-    from mqe_tpu.envs.registry import make_mqe_env as make_jax_env
-    from mqe_tpu.physics.model import load_model as jax_load
-
-    jwrap, _ = make_jax_env(task, num_envs=E, seed=0)
-    jenv = jwrap.env
-    jscene = jenv.scene
-    if npc_name:
-        jscene = dataclasses.replace(jscene, npc=jax_load(npc_name), num_npcs=2)
-    return jenv, tenv, jscene, tscene
+    return tenv, tscene
 
 
-def _dr(rng, A):
-    return dict(mu=rng.uniform(0.5, 1.5, E), payload=rng.rand(E, A), com=rng.randn(E, A, 3) * 0.01)
+def _port_state(rec, case):
+    t = lambda k: torch.from_numpy(rec[f"{case}/{k}"])
+    return scene.PhysState(agents=scene.ActorState(**{k: t(f"agents/{k}") for k in NAMES}),
+                           npcs=scene.ActorState(**{k: t(f"npcs/{k}") for k in NAMES}))
 
 
-@pytest.mark.parametrize("case", list(NPC_CASES))
-def test_substep_batch_with_npcs_matches_jax(case, monkeypatch):
-    import jax.numpy as jnp
-    from mqe_tpu.physics import scene as JS
-
-    jenv, tenv, jscene, tscene = _scenes(case)
-    rng = np.random.RandomState(2)
-    ag, npc = NPC_CASES[case][2](tenv, rng)
-    A, N = tscene.num_agents, tscene.num_npcs
-    ex = _dr(rng, A)
-    tau = rng.randn(E, A, 12) * 3.0
-    npc_tau = rng.randn(E, N, tscene.npc.nq) * 2.0
-    f32 = lambda d: {k: np.asarray(v, np.float32) for k, v in d.items()}
-    ag, npc, ex = f32(ag), f32(npc), f32(ex)
-    tau, npc_tau = tau.astype(np.float32), npc_tau.astype(np.float32)
-    dt = tenv.sim_dt / tenv.subiters
-
-    jstate = JS.PhysState(agents=JS.ActorState(**{k: jnp.asarray(v) for k, v in ag.items()}),
-                          npcs=JS.ActorState(**{k: jnp.asarray(v) for k, v in npc.items()}))
-    jdr = JS.DomainRand(mu_scale=jnp.asarray(ex["mu"]), payload=jnp.asarray(ex["payload"]),
-                        com_shift=jnp.asarray(ex["com"]), motor_strength=jnp.ones((E, A, 12)))
-    jterrain = JS.Terrain(height=jenv.hf, origin=jenv.hf_origin, scale=jenv.hf_scale,
-                          boxes=jenv.env_boxes, static_geoms=jenv.static_geoms)
-    jnew, jc = JS.substep_batch(jscene, jterrain, jstate, jnp.asarray(tau),
-                                jnp.asarray(npc_tau), jdr, dt)
-
+def _substep_matches(rec, case, monkeypatch):
+    tenv, tscene = _port_scene(rec, case)
+    t = lambda k: torch.from_numpy(rec[f"{case}/{k}"])
+    A = tscene.num_agents
+    tdr = scene.DomainRand(mu_scale=t("dr/mu"), payload=t("dr/payload"), com_shift=t("dr/com"),
+                           motor_strength=torch.ones((E, A, 12)))
     seen = []
     real = scene._npc_prim_force
     monkeypatch.setattr(scene, "_npc_prim_force",
                         lambda *a, **k: seen.append(real(*a, **k)) or seen[-1])
-    t = torch.from_numpy
-    tstate = scene.PhysState(agents=scene.ActorState(**{k: t(v) for k, v in ag.items()}),
-                             npcs=scene.ActorState(**{k: t(v) for k, v in npc.items()}))
-    tdr = scene.DomainRand(mu_scale=t(ex["mu"]), payload=t(ex["payload"]),
-                           com_shift=t(ex["com"]), motor_strength=torch.ones((E, A, 12)))
-    tnew, tcon = scene.substep_batch(tscene, tenv.terrain, tstate, t(tau), tdr, dt,
-                                     npc_tau=t(npc_tau))
+    tnew, tcon = scene.substep_batch(tscene, tenv.terrain, _port_state(rec, case), t("tau"), tdr,
+                                     float(rec[f"{case}/dt"]), npc_tau=t("npc_tau"))
 
     # the robots pushed on the NPC in both envs, and the NPCs touched something
     wrench = seen[0][1]
     assert float(wrench[0].abs().max()) > 1.0 and float(wrench[1].abs().max()) > 1.0
     assert float(tcon.npc_sphere_force.abs().max()) > 1.0 or case == "seesaw"
-    _cmp(jc.sphere_force, tcon.sphere_force, F_TOL, "sphere_force")
-    _cmp(jc.npc_sphere_force, tcon.npc_sphere_force, F_TOL, "npc_sphere_force")
-    _cmp(jc.feet_force, tcon.feet_force, F_TOL, "feet_force")
+    for k in ("sphere_force", "npc_sphere_force", "feet_force"):
+        _cmp(rec[f"{case}/contact/{k}"], getattr(tcon, k), F_TOL, k)
     for who in ("agents", "npcs"):
         for n, tol in zip(NAMES, TOLS):
-            _cmp(getattr(getattr(jnew, who), n), getattr(getattr(tnew, who), n), tol, f"{who}.{n}")
+            _cmp(rec[f"{case}/out/{who}/{n}"], getattr(getattr(tnew, who), n), tol, f"{who}.{n}")
+
+
+@pytest.fixture(scope="module")
+def npc_golden():
+    with np.load(NPC_GOLDEN) as f:
+        return dict(f)
+
+
+@pytest.mark.parametrize("case", NPC_CASES)
+def test_substep_batch_with_npcs_matches_jax(npc_golden, case, monkeypatch):
+    _substep_matches(npc_golden, case, monkeypatch)
+
+
+@pytest.fixture(scope="module")
+def npc_live_record():
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_goldens", os.path.join(REPO, "tools", "make_torch_goldens.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool.record_npc_substep()
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", NPC_CASES)
+def test_substep_batch_with_npcs_matches_live_jax(npc_live_record, case, monkeypatch):
+    _substep_matches(npc_live_record, case, monkeypatch)
 
 
 # ---------------------------------------------------------------------------
@@ -336,18 +274,14 @@ def test_fk_full_kernel_raises_on_input_the_kernel_does_not_take(field, spoil):
 
 
 @pytest.mark.parametrize("case", ["pushbox", "seesaw"])
-def test_substep_batch_runs_the_npc_kernels(case, monkeypatch):
+def test_substep_batch_runs_the_npc_kernels(npc_golden, case, monkeypatch):
     """One substep with an NPC calls the sphere FK, the full FK and the step
     kernel twice: the robots, then the NPCs with the reaction wrench and the
     scene's `npc_root_free` (False for the welded seesaw, whose model is
     loaded welded too), all on flat contiguous tensors."""
-    _, tenv, _, tscene = _scenes(case, jax_side=False)
+    tenv, tscene = _port_scene(npc_golden, case)
     assert tscene.npc_root_free == tscene.npc.root_free == (case == "pushbox")
-    rng = np.random.RandomState(2)
-    ag, npc = NPC_CASES[case][2](tenv, rng)
-    t = lambda v: torch.as_tensor(np.asarray(v, np.float32))
-    state = scene.PhysState(agents=scene.ActorState(**{k: t(v) for k, v in ag.items()}),
-                            npcs=scene.ActorState(**{k: t(v) for k, v in npc.items()}))
+    state = _port_state(npc_golden, case)
     calls = []
     for name in ("fk_spheres_kernel", "fk_full_kernel", "step_actor_kernel"):
         real = getattr(scene, name)

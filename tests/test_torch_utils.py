@@ -1,5 +1,7 @@
 """The port's helpers that need no JAX: the kernel's model table, the build's
-compiler lookup, the random-draw helper, the op counter and the state map."""
+compiler lookup, the random-draw helper, the op counter, the state map, and
+the card as the default device of the entry points that carry nets and
+state across."""
 import os
 
 import numpy as np
@@ -93,3 +95,16 @@ def test_other_tasks_name_their_roadmap_item():
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
         make_mqe_env("go1sheep-easy", num_envs=2, device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """The functions that build the port's nets and carry state across from
+    the JAX package put them on the card unless the caller names a device."""
+    import inspect
+
+    from mqe_tpu_torch.control import nets
+    from mqe_tpu_torch.utils import convert
+
+    for fn in (convert.mlp_from_numpy, convert.env_state_from_numpy, nets.ActuatorNet,
+               nets.load_body_policy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn

@@ -1,6 +1,7 @@
 """Record the JAX side of the port's step tests (tests/test_torch_env.py,
-tests/test_torch_tasks.py): control steps of the JAX package, which the
-port's CPU tests replay without compiling JAX.
+tests/test_torch_tasks.py, tests/test_torch_npc.py): control steps and NPC
+substeps of the JAX package, which the port's CPU tests replay without
+running JAX.
 
     JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [FILE ...]
 
@@ -19,9 +20,22 @@ step keys split from PRNGKey(1). The cases start from:
 From each start, one step with that start's actions and PRNGKey(7) is
 recorded: the start state, the actions, and the step's state, observations,
 reward and done. Each pytree is flattened to "<case>/<record>/<path>" keys.
+
+torch_npc_substep.npz holds one `scene.substep_batch` with NPCs at 2 envs
+(op by op, no jit) for each case of `NPC_CASES`, from hand-placed states:
+the go1pushbox scene (robots pressed against the box, the box on the
+ground), the go1seesaw scene (a robot on the plank, one against the pivot
+cylinder, one on the platform) and two balls on the pushbox terrain (NPC-NPC
+pairs). States, domain randomisation and torques are drawn from
+RandomState(2). Each case records "<case>/task" and "<case>/npc" (the NPC
+model put in the task's place, or ""), "<case>/dt", the inputs
+"<case>/{agents,npcs}/<field>", "<case>/dr/{mu,payload,com}", "<case>/tau",
+"<case>/npc_tau", and JAX's "<case>/out/{agents,npcs}/<field>" and
+"<case>/contact/{sphere_force,npc_sphere_force,feet_force}".
 """
 import os
 import sys
+from functools import partial
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -35,13 +49,7 @@ GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests"
 NUM_ENVS = 2
 WARM_STEPS = 25
 STARTS = {"post-reset": 0, "in-contact": WARM_STEPS, "reset-step": WARM_STEPS}
-FILES = {
-    "torch_go1gate_step.npz": ("go1gate", ("post-reset", "in-contact")),
-    "torch_go1gate_reset_step.npz": ("go1gate", ("reset-step",)),
-    "torch_go1plane_step.npz": ("go1plane", ("post-reset", "in-contact")),
-    "torch_go1pushbox_step.npz": ("go1pushbox", ("post-reset", "in-contact", "reset-step")),
-    "torch_go1seesaw_step.npz": ("go1seesaw", ("post-reset", "in-contact")),
-}
+ACTOR_FIELDS = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")
 
 
 def _flat(prefix, tree):
@@ -89,13 +97,151 @@ def record(task="go1gate", cases=("post-reset", "in-contact")) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# one NPC substep from hand-placed states (torch_npc_substep.npz)
+# ---------------------------------------------------------------------------
+
+def _agents(env, rng):
+    """Robot state (E, A, ...) standing at the agent origins, small noise."""
+    E, A = NUM_ENVS, env.num_agents
+    pos = np.zeros((E, A, 3), np.float32)
+    pos[..., :2] = np.asarray(env.agent_origins)[..., :2]
+    pos[..., 2] = 0.30 + rng.randn(E, A) * 0.01
+    qt = rng.randn(E, A, 4) * 0.03 + np.array([0, 0, 0, 1.0])
+    return dict(pos=pos, quat=qt / np.linalg.norm(qt, axis=-1, keepdims=True),
+                lin_vel=rng.randn(E, A, 3) * 0.3, ang_vel=rng.randn(E, A, 3) * 0.3,
+                q=np.asarray(env.default_q) + rng.randn(E, A, 12) * 0.1,
+                qd=rng.randn(E, A, 12) * 0.5)
+
+
+def _npcs(pos, qs, qds, rng):
+    E, N = NUM_ENVS, pos.shape[1]
+    return dict(pos=pos, quat=np.tile([0, 0, 0, 1.0], (E, N, 1)),
+                lin_vel=rng.randn(E, N, 3) * 0.05, ang_vel=rng.randn(E, N, 3) * 0.05,
+                q=qs, qd=qds)
+
+
+def _pushbox_state(env, rng):
+    ag = _agents(env, rng)
+    eo = np.asarray(env.env_origins)
+    box = eo + np.array([2.5, 0.0, 0.49])                  # 1 cm into the ground
+    ag["pos"][0, 0] = box[0] + np.array([-0.76, 0.0, -0.19])  # head into the -x face
+    ag["pos"][1, 0] = box[1] + np.array([0.0, -0.53, -0.19])  # trunk into the -y face
+    z = np.zeros((NUM_ENVS, 1, 0))
+    return ag, _npcs(box[:, None], z, z, rng)
+
+
+def _seesaw_state(env, rng):
+    import jax.numpy as jnp
+
+    from mqe_tpu.physics import soa as jsoa
+    from mqe_tpu.physics.model import load_model
+
+    E = NUM_ENVS
+    ag = _agents(env, rng)
+    eo = np.asarray(env.env_origins)
+    pivot = eo + np.array([8.0, 0.0, 1.0])
+    qs, qds = np.full((E, 1, 1), -0.2), rng.randn(E, 1, 1) * 0.3
+    npc = _npcs(pivot[:, None], qs, qds, rng)
+    npc["lin_vel"][:] = 0.0                                 # a welded base
+    npc["ang_vel"][:] = 0.0
+    # a point on the plank's top face, from the plank's pose
+    m = load_model("seesaw", root_free=False)
+    f32 = lambda a: jnp.asarray(np.asarray(a, np.float32).reshape(E, -1))
+    Rw, pw, _, _, _ = (np.asarray(x) for x in jsoa.fk_full(m, *(f32(npc[k]) for k in ACTOR_FIELDS)))
+    on_plank = lambda e, x: pw[e, 1] + Rw[e, 1] @ np.array([x, 0.0, 0.015], np.float32)
+    ag["pos"][0, 0] = on_plank(0, -1.0) + np.array([0.0, 0.0, 0.04])   # trunk on the plank
+    ag["pos"][0, 1] = pivot[0] + np.array([-0.46, 0.0, -0.6])          # head into the pivot
+    ag["pos"][1, 0] = on_plank(1, -1.6) + np.array([0.0, 0.0, 0.04])
+    ag["pos"][1, 1] = pivot[1] + np.array([0.0, 0.0, 0.055])           # on the platform
+    return ag, npc
+
+
+def _balls_state(env, rng):
+    ag = _agents(env, rng)
+    ag["pos"][1, 0, 2] = 0.2                                # env 1: a crouching robot
+    b0 = ag["pos"][:, 0] + np.array([0.27 + 0.11, 0.0, 0.0])  # at the head
+    b1 = b0 + np.array([0.15, 0.02, 0.0])                   # into ball 0
+    b1[1, 2] = 0.095                                        # env 1: on the ground
+    z = np.zeros((NUM_ENVS, 2, 0))
+    return ag, _npcs(np.stack([b0, b1], axis=1), z, z, rng)
+
+
+# case: (task, NPC model put in the task's place with 2 NPCs or "", state)
+NPC_CASES = {"pushbox": ("go1pushbox", "", _pushbox_state),
+             "seesaw": ("go1seesaw", "", _seesaw_state),
+             "two-balls": ("go1pushbox", "ball", _balls_state)}
+
+
+def record_npc_substep(cases=tuple(NPC_CASES)) -> dict:
+    """The record of one JAX `substep_batch` with NPCs for each of `cases`."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from mqe_tpu.envs.registry import make_mqe_env
+    from mqe_tpu.physics import scene as JS
+    from mqe_tpu.physics.model import load_model
+
+    E = NUM_ENVS
+    rec = {}
+    for case in cases:
+        task, npc_name, state = NPC_CASES[case]
+        env = make_mqe_env(task, num_envs=E, seed=0)[0].env
+        jscene = env.scene
+        if npc_name:
+            jscene = dataclasses.replace(jscene, npc=load_model(npc_name), num_npcs=2)
+        A, N = jscene.num_agents, jscene.num_npcs
+        rng = np.random.RandomState(2)
+        ag, npc = state(env, rng)
+        ex = dict(mu=rng.uniform(0.5, 1.5, E), payload=rng.rand(E, A),
+                  com=rng.randn(E, A, 3) * 0.01)
+        tau = rng.randn(E, A, 12) * 3.0
+        npc_tau = rng.randn(E, N, jscene.npc.nq) * 2.0
+        f32 = lambda d: {k: np.asarray(v, np.float32) for k, v in d.items()}
+        ag, npc, ex = f32(ag), f32(npc), f32(ex)
+        tau, npc_tau = tau.astype(np.float32), npc_tau.astype(np.float32)
+        dt = env.sim_dt / env.subiters
+
+        actors = lambda d: JS.ActorState(**{k: jnp.asarray(v) for k, v in d.items()})
+        jstate = JS.PhysState(agents=actors(ag), npcs=actors(npc))
+        jdr = JS.DomainRand(mu_scale=jnp.asarray(ex["mu"]), payload=jnp.asarray(ex["payload"]),
+                            com_shift=jnp.asarray(ex["com"]), motor_strength=jnp.ones((E, A, 12)))
+        jterrain = JS.Terrain(height=env.hf, origin=env.hf_origin, scale=env.hf_scale,
+                              boxes=env.env_boxes, static_geoms=env.static_geoms)
+        jnew, jc = JS.substep_batch(jscene, jterrain, jstate, jnp.asarray(tau),
+                                    jnp.asarray(npc_tau), jdr, dt)
+        rec[f"{case}/task"], rec[f"{case}/npc"] = np.array(task), np.array(npc_name)
+        rec[f"{case}/dt"] = np.array(dt)
+        rec[f"{case}/tau"], rec[f"{case}/npc_tau"] = tau, npc_tau
+        for k, v in ex.items():
+            rec[f"{case}/dr/{k}"] = v
+        for who, d, new in (("agents", ag, jnew.agents), ("npcs", npc, jnew.npcs)):
+            for k in ACTOR_FIELDS:
+                rec[f"{case}/{who}/{k}"] = d[k]
+                rec[f"{case}/out/{who}/{k}"] = np.asarray(getattr(new, k))
+        for k in ("sphere_force", "npc_sphere_force", "feet_force"):
+            rec[f"{case}/contact/{k}"] = np.asarray(getattr(jc, k))
+    return rec
+
+
+FILES = {
+    "torch_go1gate_step.npz": partial(record, "go1gate", ("post-reset", "in-contact")),
+    "torch_go1gate_reset_step.npz": partial(record, "go1gate", ("reset-step",)),
+    "torch_go1plane_step.npz": partial(record, "go1plane", ("post-reset", "in-contact")),
+    "torch_go1pushbox_step.npz": partial(record, "go1pushbox",
+                                         ("post-reset", "in-contact", "reset-step")),
+    "torch_go1seesaw_step.npz": partial(record, "go1seesaw", ("post-reset", "in-contact")),
+    "torch_npc_substep.npz": record_npc_substep,
+}
+
+
 def main(names):
     for name in names or [n for n in FILES if not os.path.exists(os.path.join(GOLDENS, n))]:
-        task, cases = FILES[name]
-        rec = record(task, cases)
+        rec = FILES[name]()
         out = os.path.normpath(os.path.join(GOLDENS, name))
         np.savez_compressed(out, **rec)
-        dones = {c: rec[f"{c}/done"].tolist() for c in cases}
+        dones = {k: v.tolist() for k, v in rec.items() if k.endswith("/done")}
         print(f"wrote {out}: {len(rec)} arrays, {os.path.getsize(out)} bytes; done {dones}")
 
 
