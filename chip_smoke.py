@@ -8,35 +8,38 @@ Phases, each printing one line with its elapsed seconds:
                build/mqe_tpu_torch/, with ptxas' registers, stack and spills
                of each kernel (the step kernel must have no stack or spills);
   3. kernel  - the CUDA substep kernel against its plain PyTorch version
-               (physics/soa.py::step_actor) on the card, six cases, at the
-               tolerances of tests/test_pallas_step.py; then its device time
-               per launch at the shapes of the slices (torch.profiler): the
-               robots' launch (B = 8192) and the NPCs' (B = 4096 boxes, and
-               welded seesaws), each beside the plain version's time and the
+               (physics/soa.py::step_actor) on the card at the tolerances of
+               tests/test_pallas_step.py: go1 at B = 8192 and 37, two small
+               NPC cases, and every NPC launch of the slices at its shape
+               (`NPC_LAUNCHES`: box, seesaw, ball, cylinder, revolving door,
+               door at B = 4096, the sheep at 4096 and 36,864); then its
+               device time per launch at each of those shapes
+               (torch.profiler), beside the plain version's time and the
                bound of the card;
   4. fk      - the sphere-FK kernel against soa.fk_spheres at the slice's
                shape, go1 at B = 8192, and at B = 37 and 1 (and two NPC
                models at 37 and 1), at the tolerance of
                tests/test_torch_soa.py::test_fk_matches_jax; its time and
                bound likewise, and its floor: the device time at B = 1;
-  5. fk_full - the full-FK kernel against soa.fk_full for the box and the
-               seesaw at B = 4096, the NPC shapes of the slices, and at
-               4095, 37 and 1 (the ball at 37 and 1), at the same tolerance;
-               its time, bound and B = 1 floor for both;
-  6. check   - one control step at 2 envs of go1gate, go1plane, go1pushbox
-               and go1seesaw on the card (kernels) and on the CPU (plain
-               versions) from the same state, compared, NPCs included;
-  7. slice   - go1gate, then go1pushbox and go1seesaw, at 4096 envs through
-               make_mqe_env -> reset -> step: 1 warm step and 20 timed steps
-               each. Every kernel's count is set to 0 just before a task's
-               run and read just after: go1gate launches the step kernel and
-               the sphere FK 8 times a step; an NPC task launches the step
-               kernel 16 times (robots, then NPCs), the sphere FK 8 and the
-               full FK 8.
-Then the kernels' JSON line (`launches`: the sum over the three runs, by task
-under `launches_by_task`), the card's name and power limit, and the result
-line `{"ok": true, "device": {...}}`. Any failed phase raises (exit code 1);
-with no CUDA device it exits with code 2 and prints no result.
+  5. fk_full - the full-FK kernel against soa.fk_full for every NPC launch
+               of the slices at its shape, and for the box and the seesaw
+               also at 4095, 37 and 1 (the ball at 37 and 1), at the same
+               tolerance; its time and bound at each launch's shape, and the
+               B = 1 floor for the box and the seesaw;
+  6. check   - one control step at 2 envs of each of the 14 tasks on the card
+               (kernels) and on the CPU (plain versions) from the same state,
+               with the same draws, compared, NPCs included;
+  7. slice   - every task but go1plane at 4096 envs through make_mqe_env ->
+               reset -> step: 1 warm step and the timed steps of `SLICES`.
+               Every kernel's count is set to 0 just before a task's run and
+               read just after: a task without a colliding NPC (go1gate,
+               go1wrestling, go1bridge) launches the step kernel and the
+               sphere FK 8 times a step; an NPC task launches the step kernel
+               16 times (robots, then NPCs), the sphere FK 8 and the full FK 8.
+Then the kernels' JSON line (`launches`: the sum over the slices' runs, by
+task under `launches_by_task`), the card's name and power limit, and the
+result line `{"ok": true, "device": {...}}`. Any failed phase raises (exit
+code 1); with no CUDA device it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from mqe_tpu_torch.envs.registry import make_mqe_env  # noqa: E402
+from mqe_tpu_torch.envs.registry import ENV_DICT, make_mqe_env  # noqa: E402
 from mqe_tpu_torch.physics import fused_step, soa  # noqa: E402
 from mqe_tpu_torch.physics.model import go1_model, load_model  # noqa: E402
 from mqe_tpu_torch.utils.convert import env_state_to  # noqa: E402
@@ -154,16 +157,20 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, kernel, n):
+def device_ms(fn, kernel, n, chunk=20):
     """Mean device milliseconds of the kernel named `kernel` over n calls of
     fn(), from torch.profiler: the kernel's own time, without the host's
-    launch overhead, which exceeds it. The mean is over the launches the
-    profiler recorded, which may miss one of many."""
+    launch overhead, which exceeds it. The calls go in chunks with a
+    synchronize between them: with back-to-back launches of a few
+    microseconds the profiler dropped most records. The mean is over the
+    launches the profiler recorded, which may miss one of many."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+        for i in range(n):
             fn()
+            if (i + 1) % chunk == 0:
+                torch.cuda.synchronize()
         torch.cuda.synchronize()
     evs = [ev for ev in prof.key_averages() if kernel in ev.key]
     count = sum(ev.count for ev in evs)
@@ -220,6 +227,14 @@ def npc_step_inputs(name, root_free, B, seed):
     return m, args, wrench
 
 
+# the NPC launches of the slices: (label, model, root_free, B); the sheep's
+# second is go1sheep-hard's 9 sheep in each of 4096 envs
+NPC_LAUNCHES = (("box", "box", True, 4096), ("seesaw", "seesaw", False, 4096),
+                ("ball", "ball", True, 4096), ("cylinder", "cylinder", False, 4096),
+                ("rotation_door", "rotation_door", False, 4096), ("door", "door", False, 4096),
+                ("sheep", "sheep", True, 4096), ("sheep x9", "sheep", True, 36864))
+
+
 def phase_kernel(smi):
     go1 = go1_model()
     # case 1: the slice's shape, go1 at B = 8192 with payload and com shift
@@ -249,14 +264,14 @@ def phase_kernel(smi):
                 soa.step_actor(m, *a3, extra_wrench=w3, root_free=root_free),
                 fused_step.step_actor_kernel(m, *a3, extra_wrench=w3, root_free=root_free))
 
-    # cases 5-6: the NPC launches of the slices at their shape, B = 4096: the
-    # free box, and the seesaw welded in both flags (model and argument)
-    npc_cases = {name: npc_step_inputs(name, rf, 4096, seed=21)
-                 for name, rf in (("box", True), ("seesaw", False))}
+    # the NPC launches of the slices at their shape, each model loaded with
+    # the scene's root flag and launched with it
+    npc_cases = {label: npc_step_inputs(name, rf, b, seed=21)
+                 for label, name, rf, b in NPC_LAUNCHES}
     for name, (m, a, w) in npc_cases.items():
         rf = m.root_free
         max_err = max(max_err, compare(
-            "kernel", f"{name} B=4096 NPC launch (root_free={rf})",
+            "kernel", f"{name} B={a[0].shape[0]} NPC launch (root_free={rf})",
             soa.step_actor(m, *a, extra_wrench=w, root_free=rf),
             fused_step.step_actor_kernel(m, *a, extra_wrench=w, root_free=rf)))
 
@@ -278,7 +293,7 @@ def phase_kernel(smi):
         rf = m.root_free
         nout = fused_step.step_actor_kernel(m, *a, extra_wrench=w, root_free=rf)
         entry["npc"][name] = timing(
-            "kernel", f"{name} B=4096 NPC launch",
+            "kernel", f"{name} B={a[0].shape[0]} NPC launch",
             lambda: fused_step.launch_step(m, *a, None, None, w, nout, 0.0025, rf),
             "fused_step_kernel",
             lambda: fused_step.step_actor_kernel(m, *a, extra_wrench=w, root_free=rf),
@@ -334,54 +349,62 @@ FK_FULL_NAMES = ("Rw", "pw", "vw", "sph_x", "sph_v")
 
 
 def phase_fk_full(smi):
-    """The full FK of the NPCs at the slices' shape, B = 4096 boxes (free)
-    and welded seesaws, and at ragged and small B; the ball at 37 and 1.
-    The JSON entry carries the box's numbers, the go1pushbox slice's; the
-    seesaw's are under "seesaw"."""
-    B = 4096
+    """The full FK of every NPC launch of the slices at its shape, and of the
+    box and the seesaw at ragged and small B too; the ball at 37 and 1 as
+    well. The JSON entry carries the box's numbers, the go1pushbox slice's;
+    every other launch's are under its label."""
     entry, worst = {}, 0.0
-    for name, root_free, sizes in (("box", True, (B, 4095, 37, 1)),
-                                   ("seesaw", False, (B, 4095, 37, 1)), ("ball", True, (37, 1))):
+    extra_sizes = {"box": (4095, 37, 1), "seesaw": (4095, 37, 1), "ball": (37, 1)}
+    for label, name, root_free, B in NPC_LAUNCHES:
         m = load_model(name, root_free=root_free)
-        for b in sizes:
+        for b in (B,) + extra_sizes.get(label, ()):
             a = fk_state(m, b, seed=5)
             out = fused_step.fk_full_kernel(m, *a)
             torch.cuda.synchronize()
-            worst = max(worst, compare("fk_full", f"{name} B={b} ({fk_geometry_txt(m, b)})",
+            worst = max(worst, compare("fk_full", f"{label} B={b} ({fk_geometry_txt(m, b)})",
                                        soa.fk_full(m, *a), out, FK_FULL_NAMES, (FK_TOL,) * 5))
-        if name == "ball":
-            continue
         args = fk_state(m, B, seed=5)
         out = fused_step.fk_full_kernel(m, *args)
-        one = fk_state(m, 1, seed=5)
-        one_out = fused_step.fk_full_kernel(m, *one)
-        t = timing("fk_full", f"{name} B={B}",
+        floor = None
+        if label in ("box", "seesaw"):
+            one = fk_state(m, 1, seed=5)
+            one_out = fused_step.fk_full_kernel(m, *one)
+            floor = lambda: fused_step.launch_fk_full(m, *one, one_out)  # noqa: E731
+        t = timing("fk_full", f"{label} B={B}",
                    lambda: fused_step.launch_fk_full(m, *args, out), "fk_full_kernel",
                    lambda: fused_step.fk_full_kernel(m, *args),
-                   lambda: soa.fk_full(m, *args), args, out, smi,
-                   floor=lambda: fused_step.launch_fk_full(m, *one, one_out))
-        if name == "box":
+                   lambda: soa.fk_full(m, *args), args, out, smi, floor=floor)
+        if label == "box":
             entry.update(t)
         else:
-            entry["seesaw"] = t
+            entry[label] = t
     return dict(
         name="fk_full_kernel", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
         replaces="mqe_tpu/physics/soa.py:556", max_abs_err=worst, library_ms=None, **entry,
     )
 
 
+def controlled(wrap):
+    """The robots the wrapper takes actions for (2 of football-defender's 3)."""
+    return getattr(wrap, "controlled_agents", wrap.num_agents)
+
+
 def phase_check(task):
-    """One step at 2 envs: kernels on the card vs plain on the CPU."""
+    """One step at 2 envs: kernels on the card vs plain on the CPU, with the
+    same draws (the reset state, the sheep script's noise)."""
     wrap_c, _ = make_mqe_env(task, num_envs=2, seed=0, device="cuda")
     wrap_h, _ = make_mqe_env(task, num_envs=2, seed=0, device="cpu")
     ts_c, _ = wrap_c.reset()
     ts_h = env_state_to(ts_c, "cpu")
-    acts = np.random.RandomState(5).uniform(-1, 1, (2, wrap_c.num_agents, 3)).astype(np.float32)
+    rng = np.random.RandomState(5)
+    acts = rng.uniform(-1, 1, (2, controlled(wrap_c), 3)).astype(np.float32)
+    noise = torch.as_tensor(rng.randn(2, wrap_c.num_npcs, 3).astype(np.float32))
     fresh = wrap_c.env.fresh_state()  # the reset state, should an env reset
     out_c = wrap_c.step(ts_c, torch.as_tensor(acts, device="cuda"),
-                        draws=wrap_c.env.draws({"fresh": fresh}))
+                        draws=wrap_c.env.draws({"fresh": fresh, "npc_noise": noise.cuda()}))
     out_h = wrap_h.step(ts_h, torch.as_tensor(acts),
-                        draws=wrap_h.env.draws({"fresh": env_state_to(fresh, "cpu")}))
+                        draws=wrap_h.env.draws({"fresh": env_state_to(fresh, "cpu"),
+                                                "npc_noise": noise}))
     worst = {}
     for who in ("agents", "npcs"):
         for n in NAMES:
@@ -400,15 +423,23 @@ def phase_check(task):
             raise AssertionError(f"check {task} {n}: card vs CPU {v:.3e} > {tol:.0e}")
     if not (obs_d <= 1e-4 and rew_d <= 1e-4):
         raise AssertionError(f"check {task} obs {obs_d:.3e} / reward {rew_d:.3e} > 1e-4")
+    cmd_d = float((out_c[0].env.commands.cpu() - out_h[0].env.commands).abs().max())
+    if not cmd_d <= 1e-5:
+        raise AssertionError(f"check {task} commands: card vs CPU {cmd_d:.3e} > 1e-5")
     say("check", f"{task} 2 envs, card vs CPU after one step: "
         + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
-        + f", obs {obs_d:.3e}, reward {rew_d:.3e}")
+        + f", obs {obs_d:.3e}, reward {rew_d:.3e}, commands {cmd_d:.3e}")
 
 
 KERNELS = {"fused_step_kernel": fused_step.step_actor_kernel,
            "fk_spheres_kernel": fused_step.fk_spheres_kernel,
            "fk_full_kernel": fused_step.fk_full_kernel}
-SLICES = ("go1gate", "go1pushbox", "go1seesaw")
+# task: timed steps. 20 for the earlier slices' tasks and for one task of
+# each new shape (4 robots, static geoms, 9 NPCs), 5 for the others
+SLICES = {"go1gate": 20, "go1pushbox": 20, "go1seesaw": 20, "go1football-2vs2": 20,
+          "go1wrestling": 20, "go1sheep-hard": 20, "go1football-defender": 5,
+          "go1football-1vs1": 5, "go1tug": 5, "go1revolvingdoor": 5, "go1bridge": 5,
+          "go1door": 5, "go1sheep-easy": 5}
 
 
 def phase_slice(smi, task, num_envs=4096, steps=20):
@@ -418,8 +449,9 @@ def phase_slice(smi, task, num_envs=4096, steps=20):
     ts, obs = wrap.reset()
     torch.cuda.synchronize()
     say("slice", f"{task} {num_envs} envs built and reset, obs {tuple(obs.shape)}")
+    nact = controlled(wrap)
     cmds = torch.as_tensor(
-        np.random.RandomState(1).uniform(-1, 1, (num_envs, wrap.num_agents, 3)).astype(np.float32),
+        np.random.RandomState(1).uniform(-1, 1, (num_envs, nact, 3)).astype(np.float32),
         device="cuda")
     ts, obs, rew, done, info = wrap.step(ts, cmds)  # warm
     torch.cuda.synchronize()
@@ -438,8 +470,8 @@ def phase_slice(smi, task, num_envs=4096, steps=20):
             raise AssertionError(f"{task}: {name} launched {n} times in {steps + 1} steps, "
                                  f"expected {expect[name]} a step")
     npcs = ts.env.phys.npcs
-    for name, t, shape in (("obs", obs, (num_envs, wrap.num_agents, wrap.obs_dim)),
-                           ("reward", rew, (num_envs, wrap.num_agents)),
+    for name, t, shape in (("obs", obs, (num_envs, nact, wrap.obs_dim)),
+                           ("reward", rew, (num_envs, nact)),
                            ("npc pos", npcs.pos, (num_envs, wrap.num_npcs, 3)),
                            ("npc q", npcs.q, tuple(npcs.qd.shape))):
         if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
@@ -478,9 +510,9 @@ def main():
     entries = [phase_kernel(smi), phase_fk(smi), phase_fk_full(smi)]
     for entry in entries:
         entry["ptxas"] = ptxas[entry["name"]]
-    for task in ("go1gate", "go1plane", "go1pushbox", "go1seesaw"):
+    for task in ENV_DICT:
         phase_check(task)
-    by_task = {task: phase_slice(smi, task) for task in SLICES}
+    by_task = {task: phase_slice(smi, task, steps=steps) for task, steps in SLICES.items()}
     for entry in entries:
         entry["launches"] = sum(counts[entry["name"]] for counts in by_task.values())
         entry["launches_by_task"] = {t: counts[entry["name"]] for t, counts in by_task.items()}

@@ -1,12 +1,15 @@
 """Vectorized multi-agent Go1 environment, PyTorch.
 
-Counterpart of `mqe_tpu/envs/go1_env.py` for tasks without static fixtures,
-scripted NPCs, cameras or a terrain curriculum (go1gate, go1plane, and the
-passive NPCs of go1pushbox and go1seesaw): one control step runs the
-command -> locomotion (trot controller + learned residual) -> actuator net ->
-torque chain, `decimation` x `subiters` physics substeps, termination, a
-masked auto-reset (`torch.where`, no indexed writes) and the observations.
-The JAX package's two `lax.scan`s are Python loops here.
+Counterpart of `mqe_tpu/envs/go1_env.py` for every task of the registry:
+passive NPCs (box, seesaw, ball, hinged doors and discs), static fixtures
+(the wrestling ring, the bridge), the scripted football defender and the
+sheep's flee script. Cameras, the `policy` locomotion backend and the
+terrain curriculum are not ported yet (`_unsupported`). One control step
+runs the command -> locomotion (trot controller + learned residual) ->
+actuator net -> torque chain, `decimation` x `subiters` physics substeps, the
+NPC script, termination, a masked auto-reset (`torch.where`, no indexed
+writes) and the observations. The JAX package's two `lax.scan`s are Python
+loops here.
 
 State is a dataclass of tensors with a leading env axis; the env object holds
 only what is fixed at construction (models, terrain, nets, config values).
@@ -14,6 +17,7 @@ Random draws go through `utils.random.Draws`.
 """
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass, replace
 
@@ -27,7 +31,7 @@ from mqe_tpu_torch.envs.config import class_to_dict, default_joint_array
 from mqe_tpu_torch.ops import quat as quat_ops
 from mqe_tpu_torch.physics import contact as C
 from mqe_tpu_torch.physics import scene as S
-from mqe_tpu_torch.physics.model import load_model
+from mqe_tpu_torch.physics.model import load_model, load_static_geoms
 from mqe_tpu_torch.terrain import get_terrain_builder, plane_terrain
 from mqe_tpu_torch.utils.random import Draws
 from mqe_tpu_torch.utils.tree import tree_map
@@ -77,11 +81,6 @@ class EnvState:
 def _unsupported(cfg):
     """What of a task config the port does not run yet, with its ROADMAP item."""
     out = []
-    if cfg.asset.static_model:
-        out.append("static fixtures (ROADMAP Queue A item 11)")
-    behavior = getattr(cfg.asset, "npc_behavior", "none")
-    if behavior in ("sheep", "defender"):
-        out.append(f"the scripted {behavior!r} NPC behaviour (ROADMAP Queue A item 11)")
     oc = cfg.obs.cfgs
     if getattr(oc, "depth_image", False) or getattr(oc, "rgb_image", False):
         out.append("onboard cameras (ROADMAP Queue A item 14)")
@@ -165,9 +164,25 @@ class Go1Env:
         nbox_used = int((env_boxes[..., 6] > 0).any(axis=0).sum())
         self.env_boxes = t(env_boxes[:, :nbox_used])
         self.env_info = {k: t(v[rows, cols]) for k, v in self.build.env_info.items()}
+
+        # static fixture geoms (bridge deck, wrestling ring) placed at the
+        # first NPC init position of each env
+        static_rows = np.zeros((0, 8), dtype=np.float32)
+        if cfg.asset.static_model:
+            sg = load_static_geoms(cfg.asset.static_model)
+            base = np.asarray(cfg.init_state.init_states_npc[0].pos, dtype=np.float32)
+            rows_ = [[S.SG_BOX, *(sg.boxes_center[i] + base), *sg.boxes_half[i], 1.0]
+                     for i in range(sg.boxes_center.shape[0])]
+            rows_ += [[S.SG_CYL, *(sg.cyl_center[i] + base), sg.cyl_radius[i],
+                       sg.cyl_half_length[i], 0.0, 1.0] for i in range(sg.cyl_center.shape[0])]
+            static_rows = np.asarray(rows_, dtype=np.float32)
+        sgs = np.tile(static_rows[None], (E, 1, 1))
+        sgs[:, :, 1:3] += np.asarray(self.build.env_origins[rows, cols][:, None, :2])
+        self.static_geoms = t(sgs)                                     # (E, G, 8)
         self.terrain = S.Terrain(
             height=t(self.build.height), origin=t(self.build.origin),
             scale=float(self.build.scale), boxes=self.env_boxes,
+            static_geoms=self.static_geoms,
         )
 
         # the NPC collides unless a static fixture stands in for it
@@ -256,6 +271,20 @@ class Go1Env:
                 dnpc = np.zeros(self.npc.nq, dtype=np.float32)
             dnpc = dnpc[:self.npc.nq]
         self.npc_default_q = t(dnpc)
+
+        # sheep grid init (ref go1_sheep.py:66-111) overrides init_states_npc
+        self.npc_behavior = getattr(cfg.asset, "npc_behavior", "none")
+        if self.npc_behavior == "sheep":
+            nr, nc = cfg.asset.num_rows, cfg.asset.num_cols
+            dis = cfg.asset.dis_sheep
+            bt = cfg.terrain.BarrierTrack_kwargs
+            ox = bt["init"]["block_length"] + bt["plane"]["block_length"] / 2 - (nr // 2) * dis[0]
+            oy = -(nc // 2) * dis[1]
+            pos = [[ox + i * dis[0], oy + j * dis[1], 0.3] for i in range(nr) for j in range(nc)]
+            ni = np.zeros((N, 13), dtype=np.float32)
+            ni[:, :3] = np.asarray(pos[:N], dtype=np.float32)
+            ni[:, 6] = 1.0
+            self.npc_init = t(ni)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
 
@@ -546,6 +575,65 @@ class Go1Env:
             env_info=self.env_info,
         )
 
+    def _npc_script(self, state: EnvState, draws: Draws):
+        """Scripted NPC dynamics at control rate: the sheep flee the dogs
+        (ref go1_sheep.py:35-64). Returns the NPCs' new state, every field
+        contiguous, as the kernels take it."""
+        cfg = self.cfg
+        N = self.num_npcs
+        nc = state.phys.npcs
+        dog = state.phys.agents.pos                       # (E, A, 3)
+        sheep = nc.pos                                    # (E, N, 3)
+        rnd = cfg.asset.sheep_movement_randomness
+        dv = rnd * 2.0 * draws.normal("npc_noise", sheep.shape, self.device)
+        if N != 1:
+            rel = sheep.mean(dim=1, keepdim=True) - sheep
+            dv = dv + rnd * rel / (torch.linalg.norm(rel, dim=-1, keepdim=True) + 1e-9) / 1.5
+        scale = cfg.asset.sheep_movement_scale
+        for i in range(self.num_agents):
+            rel = sheep - dog[:, i:i + 1, :]
+            # the reference's relative_pos_to_dv: dis is the norm of the
+            # squared coordinates; rel / dis^1.4, zero beyond range
+            # (go1_sheep.py:14-18)
+            dis = torch.linalg.norm(rel ** 2, dim=-1)
+            contrib = rel / (dis[..., None] ** 1.4 + 1e-9)
+            contrib = torch.where((dis > 9.0)[..., None], 0.0, contrib)
+            dv = dv + scale * contrib
+        lin = nc.lin_vel[..., :2] + dv[..., :2]
+        lin = torch.cat([torch.clamp(lin, -2.0, 2.0), nc.lin_vel[..., 2:]], dim=-1)
+        pos = torch.cat([nc.pos[..., :2], torch.clamp(nc.pos[..., 2:], 0.0, 0.3)], dim=-1)
+        quat = torch.cat([torch.zeros_like(nc.quat[..., :2]), nc.quat[..., 2:]], dim=-1)
+        return replace(nc, lin_vel=lin, pos=pos, quat=quat_ops.quat_normalize(quat))
+
+    def _defender_commands(self, state: EnvState):
+        """Scripted football defender command (3rd agent), ref
+        go1_football_defender.py:56-80. (E, 3)."""
+        ag = state.phys.agents
+        dpos = ag.pos[:, 2, :]                            # defender = 3rd agent
+        ball = state.phys.npcs.pos[:, 0, :]
+        bt = self.cfg.terrain.BarrierTrack_kwargs
+        gate = self.env_origins + torch.tensor(
+            [bt["init"]["block_length"] + bt["plane"]["block_length"], 0.0, 0.0],
+            dtype=torch.float32, device=self.device)
+        target = 0.6 * ball + 0.4 * gate
+        _, _, dyaw = quat_ops.get_euler_xyz_wrapped(ag.quat[:, 2])
+        to_gate = gate - dpos
+        # arctan of the ratio, as the reference has it, not atan2: the two
+        # differ off the principal branch
+        yaw_to_gate = math.pi + torch.atan(to_gate[:, 1] / (to_gate[:, 0] + 1e-9))
+        yaw_cmd = torch.clamp(yaw_to_gate - dyaw, -0.3, 0.3) / 0.3
+        tg_dist = torch.linalg.norm((target - gate)[:, :2], dim=-1)
+        d_dist = torch.linalg.norm((dpos - gate)[:, :2], dim=-1)
+        x_cmd = torch.clamp(tg_dist - d_dist, -0.5, 0.5)
+        y_cmd = -torch.clamp(
+            gate[:, 1]
+            + (target[:, 1] - gate[:, 1]) * (dpos[:, 0] - gate[:, 0])
+            / (target[:, 0] - gate[:, 0] + 1e-9)
+            - dpos[:, 1],
+            -0.5, 0.5,
+        )
+        return torch.stack([x_cmd, y_cmd, yaw_cmd], dim=-1)
+
     def _step_pre(self, state: EnvState, commands, draws: Draws):
         """Physics + termination, BEFORE the masked auto-reset.
 
@@ -553,6 +641,9 @@ class Go1Env:
         `_step_finish` (wrappers read task success on the pre-reset state)."""
         cfg = self.cfg
         E, A, dev = self.num_envs, self.num_agents, self.device
+        if self.npc_behavior == "defender":
+            # the wrapper commands the first A-1 robots; the script the last
+            commands = torch.cat([commands, self._defender_commands(state)[:, None, :]], dim=1)
         # action clip modes (ref legged_robot_field.py:96-115)
         nrm = cfg.normalization
         if getattr(nrm, "clip_actions_method", "hard") == "tanh":
@@ -581,6 +672,10 @@ class Go1Env:
             tau, err_hist, lag, _ = self._torques(state, action)
             phys, contacts = self._physics(state, tau)
             state = replace(state, phys=phys, err_hist=err_hist, lag_buffer=lag)
+
+        if self.npc_behavior == "sheep" and self.num_npcs > 0:
+            # scripted NPCs, at control rate (the reference's _step_npc)
+            state = replace(state, phys=replace(state.phys, npcs=self._npc_script(state, draws)))
 
         if cfg.domain_rand.push_robots:
             interval = int(np.ceil(cfg.domain_rand.push_interval_s / self.dt))
@@ -632,8 +727,10 @@ class Go1Env:
 
     @torch.no_grad()
     def step(self, state: EnvState, commands, draws: Draws | None = None):
-        """One control step. commands: (E, A, 3). A draw named "fresh" in
-        `draws` is the reset state that done envs take."""
+        """One control step. commands: (E, A, 3), or (E, A - 1, 3) where the
+        last robot is the scripted defender. A draw named "fresh" in `draws`
+        is the reset state that done envs take; "npc_noise" the sheep
+        script's normal draw."""
         draws = draws or self.draws()
         state, carry = self._step_pre(state, commands, draws)
         return self._step_finish(state, carry, draws)

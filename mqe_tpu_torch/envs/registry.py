@@ -1,8 +1,8 @@
 """Task registry + factory (ref mqe/envs/utils.py:38-133).
 
-Counterpart of `mqe_tpu/envs/registry.py`. The port runs go1plane, go1gate,
-go1pushbox and go1seesaw so far; the other tasks of the JAX package raise
-NotImplementedError naming the ROADMAP item that ports them.
+Counterpart of `mqe_tpu/envs/registry.py`: the same 14 task names (the 13
+reference tasks plus the unregistered door task), each a config and a
+wrapper.
 """
 from __future__ import annotations
 
@@ -13,18 +13,19 @@ from mqe_tpu_torch.envs.go1_env import Go1Env
 ENV_DICT = {
     "go1plane": {"config": T.Go1PlaneCfg, "wrapper": W.EmptyWrapper},
     "go1gate": {"config": T.Go1GateCfg, "wrapper": W.Go1GateWrapper},
+    "go1sheep-easy": {"config": T.SingleSheepCfg, "wrapper": W.Go1SheepWrapper},
+    "go1sheep-hard": {"config": T.NineSheepCfg, "wrapper": W.Go1SheepWrapper},
+    "go1football-defender": {"config": T.Go1FootballDefenderCfg,
+                             "wrapper": W.Go1FootballDefenderWrapper},
+    "go1football-1vs1": {"config": T.Go1Football1vs1Cfg, "wrapper": W.Go1FootballGameWrapper},
+    "go1football-2vs2": {"config": T.Go1Football2vs2Cfg, "wrapper": W.Go1FootballGameWrapper},
     "go1seesaw": {"config": T.Go1SeesawCfg, "wrapper": W.Go1SeesawWrapper},
     "go1pushbox": {"config": T.Go1PushboxCfg, "wrapper": W.Go1PushboxWrapper},
-}
-
-# tasks of mqe_tpu/envs/registry.py not ported yet -> ROADMAP Queue A item
-NOT_PORTED = {
-    name: "ROADMAP Queue A item 11 (NPC scripts, static fixtures and task wrappers)"
-    for name in (
-        "go1sheep-easy", "go1sheep-hard", "go1football-defender", "go1football-1vs1",
-        "go1football-2vs2", "go1tug", "go1wrestling", "go1revolvingdoor", "go1bridge",
-        "go1door",
-    )
+    "go1tug": {"config": T.Go1TugCfg, "wrapper": W.Go1TugWrapper},
+    "go1wrestling": {"config": T.Go1WrestlingCfg, "wrapper": W.Go1WrestlingWrapper},
+    "go1revolvingdoor": {"config": T.Go1RotationCfg, "wrapper": W.Go1RotationWrapper},
+    "go1bridge": {"config": T.Go1BridgeCfg, "wrapper": W.Go1BridgeWrapper},
+    "go1door": {"config": T.Go1DoorCfg, "wrapper": W.Go1DoorWrapper},
 }
 
 
@@ -34,8 +35,6 @@ def make_mqe_env(env_name: str, num_envs: int | None = None, seed: int = 0,
 
     device: where the env's tensors live; default `default_device()` (cuda).
     """
-    if env_name in NOT_PORTED:
-        raise NotImplementedError(f"{env_name} is not ported yet: {NOT_PORTED[env_name]}")
     entry = ENV_DICT[env_name]
     cfg = entry["config"]
     if callable(custom_cfg):

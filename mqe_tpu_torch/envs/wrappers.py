@@ -1,8 +1,7 @@
 """Task wrappers: observation assembly and reward shaping per task.
 
-PyTorch counterpart of `mqe_tpu/envs/wrappers.py` (`TaskWrapper`,
-`EmptyWrapper`, `Go1GateWrapper`, `Go1PushboxWrapper`, `Go1SeesawWrapper`;
-ref mqe/envs/wrappers/*.py). Each task has a flat
+PyTorch counterpart of `mqe_tpu/envs/wrappers.py`, every wrapper of it (ref
+mqe/envs/wrappers/*.py). Each task has a flat
 observation (one-hot agent ids + own/teammate base info + task oracle state),
 a Box(3) action of (vx, vy, yaw) commands scaled by [2.0, 0.5, 0.5]
 (ref go1_pushbox_wrapper.py:16), and dense/sparse rewards. Carried wrapper
@@ -16,6 +15,7 @@ import numpy as np
 import torch
 
 from mqe_tpu_torch.envs.go1_env import EnvState, Go1Env, ObsBuf
+from mqe_tpu_torch.ops import quat as quat_ops
 from mqe_tpu_torch.utils.random import Draws
 from mqe_tpu_torch.utils.tree import tree_map
 
@@ -96,7 +96,10 @@ class TaskWrapper:
 
     def _gate_x(self, *blocks):
         """x-offset from the env origin of the end of the named blocks."""
-        return sum(self.bt[b]["block_length"] for b in blocks)
+        off = 0.0
+        for b in blocks:  # summed in order, as JAX does (not math.fsum's rounding)
+            off += self.bt[b]["block_length"]
+        return off
 
     def _block_x(self, name, occurrence=0, frac=0.0):
         """x-offset from the env origin of the start of the `occurrence`-th
@@ -128,7 +131,8 @@ class TaskWrapper:
 
     @torch.no_grad()
     def step(self, ts: TaskState, actions, draws: Draws | None = None):
-        """actions (E, A, 3) in [-1, 1]. Returns (ts, obs, reward, done, info)."""
+        """actions (E, A, 3) in [-1, 1], A the robots the wrapper controls.
+        Returns (ts, obs, reward, done, info)."""
         draws = draws or self.env.draws()
         actions = torch.clamp(actions, -1.0, 1.0)
         cmds = self._transform_actions(actions) * self.action_scale
@@ -382,3 +386,532 @@ class Go1SeesawWrapper(TaskWrapper):
             rew = rew + r[:, None]
             terms["fall punishment"] = _perenv(r)
         return rew.expand(E, A), extra, terms
+
+
+class Go1SheepWrapper(TaskWrapper):
+    """(ref go1_sheep_wrapper.py)."""
+
+    has_success = True
+
+    @property
+    def obs_dim(self):
+        return 14 + 2 * self.num_npcs + self.num_agents
+
+    def _success(self, state, obs, extra):
+        # whole flock herded through the gate
+        sheep_x = self._sheep_pos(state)[..., 0]
+        return (sheep_x > extra["gate"][:, 0:1]).all(dim=1)
+
+    def _gate(self, obs):
+        return self._gate_pos(
+            obs,
+            self.bt["init"]["block_length"]
+            + self.bt["plane"]["block_length"]
+            + self.bt["gate"]["block_length"] / 2,
+        )
+
+    def _sheep_pos(self, state):
+        return state.phys.npcs.pos - self.env.env_origins[:, None, :]
+
+    def _extra_init(self, state, obs):
+        sheep = self._sheep_pos(state)
+        return {"gate": self._gate(obs), "last_avg": sheep[..., 0].mean(dim=1)}
+
+    def _obs(self, state, obs, extra):
+        A = self.num_agents
+        bi = self._base_info(obs)
+        gate = extra["gate"][:, None, :].expand(-1, A, -1)
+        sheep = self._sheep_pos(state)[..., :2].reshape(self.num_envs, 1, -1).expand(-1, A, -1)
+        return torch.cat([self._ids(), bi, torch.flip(bi, dims=(1,)), gate, sheep], dim=-1)
+
+    def _reward(self, state, obs, extra, actions, info):
+        E, A = self.num_envs, self.num_agents
+        s = self.scales
+        sheep = self._sheep_pos(state)
+        gate_x = extra["gate"][:, 0]
+        rew = torch.zeros((E, 1), device=self.device)
+        terms = {}
+        if s.get("success_reward_scale", 0) != 0:
+            succ = (sheep[..., 0] > gate_x[:, None]).sum(dim=1).to(torch.float32)
+            r = s["success_reward_scale"] * succ
+            rew = rew + r[:, None]
+            terms["success reward"] = _perenv(r)
+        if s.get("contact_punishment_scale", 0) != 0:
+            r = s["contact_punishment_scale"] * state.collide.to(torch.float32)
+            rew = rew + r[:, None]
+            terms["contact punishment"] = _perenv(r)
+        if s.get("sheep_movement_reward_scale", 0) != 0:
+            avg = sheep[..., 0].mean(dim=1)
+            dx = torch.where(info["reset_mask"], 0.0, avg - extra["last_avg"])
+            r = s["sheep_movement_reward_scale"] * dx
+            rew = rew + r[:, None]
+            terms["sheep movement reward"] = _perenv(r)
+            extra = {**extra, "last_avg": avg}
+        if s.get("mixed_sheep_reward_scale", 0) != 0:
+            d = torch.linalg.norm(sheep[..., :2] - extra["gate"][:, None, :], dim=-1)
+            m = torch.exp(-d / 2) * s["mixed_sheep_reward_scale"]
+            m = torch.where(sheep[..., 0] >= gate_x[:, None],
+                            float(s["mixed_sheep_reward_scale"]), m)
+            r = m.sum(dim=1)
+            rew = rew + r[:, None]
+            terms["mixed sheep reward"] = _perenv(r)
+        lin = s.get("sheep_pos_var_lin_punishment_scale", 0)
+        exp_ = s.get("sheep_pos_var_exp_punishment_scale", 0)
+        if lin != 0 or exp_ != 0:
+            # the population variance, as jnp.var takes it
+            var = state.phys.npcs.pos[..., :2].var(dim=1, unbiased=False).sum(-1)
+            r = lin * (var - 1) + exp_ * torch.exp(var / 2 - 1)
+            rew = rew + r[:, None]
+            terms["sheep pos var punishment"] = _perenv(r)
+        return rew.expand(E, A), extra, terms
+
+
+class Go1FootballDefenderWrapper(TaskWrapper):
+    """2 attackers vs the scripted defender (ref go1_football_wrapper.py:8-91).
+    The wrapper controls the first two robots; the env scripts the third."""
+
+    controlled_agents = 2
+    has_success = True
+
+    @property
+    def obs_dim(self):
+        return 18 + 2
+
+    def _success(self, state, obs, extra):
+        # ball in the goal past the defender
+        return self._ball(state)[:, 0] > self._gate()[0]
+
+    def _gate(self):
+        # goal line: the far end of the pitch plane
+        return (self._block_x("plane", frac=1.0), 0.0)
+
+    def _ball(self, state):
+        return state.phys.npcs.pos[:, 0, :] - self.env.env_origins
+
+    def _obs(self, state, obs, extra):
+        bi = self._base_info(obs)[:, :2, :]
+        ids = torch.eye(2, device=self.device).expand(self.num_envs, 2, 2)
+        ball = self._ball(state)[:, None, :].expand(-1, 2, -1)
+        bv = state.phys.npcs.lin_vel[:, 0][:, None, :].expand(-1, 2, -1)
+        return torch.cat([ids, bi, torch.flip(bi, dims=(1,)), ball, bv], dim=-1)
+
+    def _reward(self, state, obs, extra, actions, info):
+        E = self.num_envs
+        s = self.scales
+        ball = self._ball(state)
+        gate = torch.tensor(self._gate(), dtype=torch.float32, device=self.device)
+        rew = torch.zeros((E, 1), device=self.device)
+        terms = {}
+        if s.get("goal_reward_scale", 0) != 0:
+            r = torch.where(ball[:, 0] > gate[0], float(s["goal_reward_scale"]), 0.0)
+            rew = rew + r[:, None]
+            terms["goal reward"] = _perenv(r)
+        if s.get("ball_gate_distance_reward_scale", 0) != 0:
+            d = torch.linalg.norm(ball[:, :2] - gate[None, :], dim=-1)
+            r = s["ball_gate_distance_reward_scale"] * torch.exp(-d / 3)
+            rew = rew + r[:, None]
+            terms["ball gate distance reward"] = _perenv(r)
+        return rew.expand(E, 2), extra, terms
+
+
+class Go1FootballGameWrapper(TaskWrapper):
+    """1v1 / 2v2 football: two teams, a goal at each end, a zero-sum goal
+    reward (the reference's wrapper is scaffolding, ref
+    go1_football_wrapper.py:93-157; the JAX package's completion)."""
+
+    has_success = True
+
+    @property
+    def obs_dim(self):
+        return 18 + self.num_agents
+
+    def _success(self, state, obs, extra):
+        # team 0 scored (ball past the right goal line = second gate block)
+        return self._ball(state)[:, 0] > self._block_x("gate", occurrence=1)
+
+    def _ball(self, state):
+        return state.phys.npcs.pos[:, 0, :] - self.env.env_origins
+
+    def _obs(self, state, obs, extra):
+        A = self.num_agents
+        bi = self._base_info(obs)
+        ball = self._ball(state)[:, None, :].expand(-1, A, -1)
+        bv = state.phys.npcs.lin_vel[:, 0][:, None, :].expand(-1, A, -1)
+        return torch.cat([self._ids(), bi, torch.flip(bi, dims=(1,)), ball, bv], dim=-1)
+
+    def _reward(self, state, obs, extra, actions, info):
+        A = self.num_agents
+        ball = self._ball(state)
+        goal_r = (ball[:, 0] > self._block_x("gate", occurrence=1)).to(torch.float32)
+        goal_l = (ball[:, 0] < self._block_x("gate", occurrence=0)).to(torch.float32)
+        scale = self.scales.get("goal_reward_scale", 10)
+        half = A // 2
+        team = torch.tensor([0] * half + [1] * (A - half), device=self.device)
+        r_team0 = scale * (goal_r - goal_l)
+        rew = torch.where(team[None, :] == 0, r_team0[:, None], -r_team0[:, None])
+        return rew, extra, {"goal reward": scale * (goal_r + goal_l)}
+
+
+def _mirror_y(actions):
+    """Mirror agent 1's (vy, yaw) for the symmetric competitive tasks
+    (ref go1_wrestling_wrapper.py:47 etc.)."""
+    sign = torch.ones_like(actions)
+    sign[:, 1, 1:] = -1.0
+    return actions * sign
+
+
+def _mirror_cols(o, cols):
+    """o with agent 1's columns `cols` negated."""
+    sign = torch.ones_like(o)
+    sign[:, 1, list(cols)] = -1.0
+    return o * sign
+
+
+class Go1TugWrapper(TaskWrapper):
+    """(ref go1_tug_wrapper.py)."""
+
+    has_success = True
+
+    @property
+    def obs_dim(self):
+        return 10
+
+    def _success(self, state, obs, extra):
+        # agent 0 pulled the disc to its side (q < 0)
+        return state.phys.npcs.q[:, 0, 0] < 0
+
+    def _transform_actions(self, actions):
+        return _mirror_y(actions)
+
+    def _npc_dof(self, state):
+        return state.phys.npcs.q[:, 0, 0], state.phys.npcs.qd[:, 0, 0]
+
+    def _handle(self, q):
+        """(E, 2): the disc's handle, (1.6, q) in the env frame."""
+        return torch.stack([torch.full_like(q, 1.6), q], dim=-1)
+
+    def _extra_init(self, state, obs):
+        q, _ = self._npc_dof(state)
+        return {"last_dis": self._base_info(obs)[..., :2], "last_npc": q}
+
+    def _obs(self, state, obs, extra):
+        A = self.num_agents
+        bi = self._base_info(obs)
+        q, qd = self._npc_dof(state)
+        dis = torch.linalg.norm(obs.base_pos[..., :2] - self._handle(q)[:, None, :],
+                                dim=-1, keepdim=True)
+        npc = torch.stack([q, qd], dim=-1)[:, None, :].expand(-1, A, -1)
+        lastq = extra["last_npc"][:, None, None].expand(-1, A, -1)
+        o = torch.cat([bi, npc, dis, lastq], dim=-1)
+        # mirror agent 1's lateral quantities (ref go1_tug_wrapper.py:53-56)
+        return _mirror_cols(o, (1, 4, 6, o.shape[-1] - 1))
+
+    def _reward(self, state, obs, extra, actions, info):
+        E, A = self.num_envs, self.num_agents
+        s = self.scales
+        q, _ = self._npc_dof(state)
+        r0 = torch.zeros(E, device=self.device)          # agent 0's channel
+        terms = {}
+        lastq = extra["last_npc"]
+        if s.get("success_reward_scale", 0) != 0:
+            r = torch.where(q < 0, s["success_reward_scale"] * (-q), 0.0)
+            r = torch.where(lastq <= q, r / 2, r)
+            r0 = r0 + r
+            terms["success reward"] = _perenv(r)
+        if s.get("punishment_reward_scale", 0) != 0:
+            pn = torch.where(q > 0, s["punishment_reward_scale"] * q, 0.0)
+            pn = torch.where(lastq > q, pn / 2, pn)
+            r0 = r0 - pn
+            terms["punishment"] = _perenv(pn)
+        handle = self._handle(q)
+        d_now = torch.linalg.norm(obs.base_pos[:, 0, :2] - handle, dim=-1)
+        d_last = torch.linalg.norm(extra["last_dis"][:, 0, :] - handle, dim=-1)
+        if s.get("pos_reward_scale", 0) != 0:
+            r = torch.where(d_now < d_last, (d_last - d_now) * s["pos_reward_scale"], 0.0)
+            r0 = r0 + r
+            terms["pos reward"] = _perenv(r)
+        if s.get("pos_punishment_scale", 0) != 0:
+            pn = torch.where(d_now >= d_last, 2.0 ** d_now * s["pos_punishment_scale"], 0.0)
+            r0 = r0 - pn
+            terms["pos punishment"] = _perenv(pn)
+        rew = torch.cat([r0[:, None], torch.zeros((E, A - 1), device=self.device)], dim=1)
+        return rew, {"last_dis": obs.base_pos[..., :2], "last_npc": q}, terms
+
+    def _selfplay_reward(self, pre_state, pre_obs, reward, extra):
+        """Per-seat mirror of the reference's agent-0 reward laws (ref
+        go1_tug_wrapper.py:89-113): seat 0 wins as the disc DOF goes
+        negative, seat 1 as it goes positive, each with the same
+        improvement halving and handle-distance shaping on its own base.
+        Pre-reset state."""
+        s = self.scales
+        q = pre_state.phys.npcs.q[:, 0, 0]
+        lastq = extra["last_npc"]
+        # per-seat "favor": how far the disc sits on my side
+        sgn = torch.tensor([-1.0, 1.0], device=self.device)
+        favor = q[:, None] * sgn
+        improving = lastq[:, None] * sgn < favor
+        S = s.get("success_reward_scale", 0.0)
+        P = s.get("punishment_reward_scale", 0.0)
+        win = torch.where(favor > 0, S * favor, 0.0)
+        win = torch.where(improving, win, win / 2)
+        lose = torch.where(favor < 0, P * (-favor), 0.0)
+        lose = torch.where(improving, lose / 2, lose)
+        handle = self._handle(q)[:, None, :]
+        d_now = torch.linalg.norm(pre_obs.base_pos[..., :2] - handle, dim=-1)
+        d_last = torch.linalg.norm(extra["last_dis"] - handle, dim=-1)
+        pos_r = torch.where(d_now < d_last, (d_last - d_now) * s.get("pos_reward_scale", 0.0), 0.0)
+        pos_p = torch.where(d_now >= d_last, 2.0 ** d_now * s.get("pos_punishment_scale", 0.0), 0.0)
+        return win - lose + pos_r - pos_p
+
+
+def _fallen(r_, p_):
+    """(…) bool: toppled past the reference's reward thresholds."""
+    return (torch.abs(p_) > np.pi * 0.9) | (torch.abs(r_) >= np.pi * 0.4)
+
+
+class Go1WrestlingWrapper(TaskWrapper):
+    """(ref go1_wrestling_wrapper.py)."""
+
+    has_success = True
+
+    @property
+    def obs_dim(self):
+        return 12
+
+    def _success(self, state, obs, extra):
+        # agent 0 toppled its opponent (success-term condition for agent 1)
+        return _fallen(quat_ops.wrap_to_pi(obs.base_rpy[:, 1, 0]),
+                       quat_ops.wrap_to_pi(obs.base_rpy[:, 1, 1]))
+
+    def _transform_actions(self, actions):
+        return _mirror_y(actions)
+
+    def _obs(self, state, obs, extra):
+        bi = self._base_info(obs)
+        return _mirror_cols(torch.cat([bi, torch.flip(bi, dims=(1,))], dim=-1), (1, 4, 7, 10))
+
+    def _reward(self, state, obs, extra, actions, info):
+        E, A = self.num_envs, self.num_agents
+        s = self.scales
+        fallen = _fallen(quat_ops.wrap_to_pi(obs.base_rpy[..., 0]),
+                         quat_ops.wrap_to_pi(obs.base_rpy[..., 1]))
+        r0 = torch.zeros(E, device=self.device)
+        terms = {}
+        if s.get("success_reward_scale", 0) != 0:
+            r = torch.where(fallen[:, 1], float(s["success_reward_scale"]), 0.0)
+            r0 = r0 + r
+            terms["success reward"] = _perenv(r)
+        if s.get("punishment_scale", 0) != 0:
+            pn = torch.where(fallen[:, 0], float(s["punishment_scale"]), 0.0)
+            r0 = r0 - pn
+            terms["punishment"] = _perenv(pn)
+        # the reward flows to agent 0's channel only (ref
+        # go1_wrestling_wrapper.py:62-81); agent 1 is an unrewarded mirrored
+        # seat unless `selfplay` is on
+        rew = torch.cat([r0[:, None], torch.zeros((E, A - 1), device=self.device)], dim=1)
+        return rew, extra, terms
+
+    def _selfplay_reward(self, pre_state, pre_obs, reward, extra):
+        """Per-seat zero-sum fall reward on the pre-reset state: fall = past
+        the env's own termination thresholds (roll, pitch, z_low); +S when
+        the opponent falls, -P for falling oneself (P may be overridden by
+        `selfplay_punishment`)."""
+        s = self.scales
+        t = self.cfg.termination
+        r_ = quat_ops.wrap_to_pi(pre_obs.base_rpy[..., 0])
+        p_ = quat_ops.wrap_to_pi(pre_obs.base_rpy[..., 1])
+        z = pre_obs.base_pos[..., 2]
+        fallen = ((torch.abs(r_) > t.roll_kwargs["threshold"])
+                  | (torch.abs(p_) > t.pitch_kwargs["threshold"])
+                  | (z < t.z_low_kwargs["threshold"]))
+        S = s.get("success_reward_scale", 0.0)
+        P = s.get("punishment_scale", 0.0)
+        if self.selfplay_punishment is not None:
+            P = self.selfplay_punishment
+        opp = torch.flip(fallen, dims=(1,))
+        return S * opp.to(torch.float32) - P * fallen.to(torch.float32)
+
+
+class Go1RotationWrapper(TaskWrapper):
+    """(ref go1_rotation_wrapper.py)."""
+
+    has_success = True
+
+    @property
+    def obs_dim(self):
+        return 12
+
+    def _success(self, state, obs, extra):
+        # agent 0 through the revolving door past the target x
+        return obs.base_pos[:, 0, 0] > self._target_x()
+
+    def _transform_actions(self, actions):
+        return _mirror_y(actions)
+
+    def _target_x(self):
+        return self.bt["rotation"]["block_length"] * 0.75 + self.bt["wall"]["block_length"]
+
+    def _target_dist(self, obs):
+        tgt = torch.tensor([self._target_x(), 0.0], dtype=torch.float32, device=self.device)
+        return torch.linalg.norm(obs.base_pos[..., :2] - tgt, dim=-1)
+
+    def _extra_init(self, state, obs):
+        return {"last_dis": self._target_dist(obs)}
+
+    def _obs(self, state, obs, extra):
+        bi = self._base_info(obs)
+        return _mirror_cols(torch.cat([bi, torch.flip(bi, dims=(1,))], dim=-1), (1, 4, 7, 10))
+
+    def _reward(self, state, obs, extra, actions, info):
+        E, A = self.num_envs, self.num_agents
+        s = self.scales
+        tx = self._target_x()
+        x = obs.base_pos[..., 0]
+        r0 = torch.zeros(E, device=self.device)
+        terms = {}
+        if s.get("success_reward_scale", 0) != 0:
+            r = torch.where(x[:, 0] > tx, float(s["success_reward_scale"]), 0.0)
+            r0 = r0 + r
+            terms["success reward"] = _perenv(r)
+        if s.get("punishment_scale", 0) != 0:
+            pn = torch.where(x[:, 1] > tx, float(s["punishment_scale"]), 0.0)
+            r0 = r0 - pn
+            terms["punishment"] = _perenv(pn)
+        d = self._target_dist(obs)
+        if s.get("distance_reward_scale", 0) != 0:
+            r = torch.where(d[:, 0] < extra["last_dis"][:, 0],
+                            float(s["distance_reward_scale"]), 0.0)
+            r0 = r0 + r
+            terms["distance reward"] = _perenv(r)
+        rew = torch.cat([r0[:, None], torch.zeros((E, A - 1), device=self.device)], dim=1)
+        return rew, {"last_dis": d}, terms
+
+    def _selfplay_reward(self, pre_state, pre_obs, reward, extra):
+        """Per-seat mirror of the agent-0 laws (ref go1_rotation_wrapper.py):
+        +S for passing the door oneself, -P when the opponent passes, +D for
+        closing one's own distance to the target. Pre-reset state."""
+        s = self.scales
+        x = pre_obs.base_pos[..., 0]
+        passed = (x > self._target_x()).to(torch.float32)
+        closer = (self._target_dist(pre_obs) < extra["last_dis"]).to(torch.float32)
+        S = s.get("success_reward_scale", 0.0)
+        P = s.get("punishment_scale", 0.0)
+        D = s.get("distance_reward_scale", 0.0)
+        return S * passed - P * torch.flip(passed, dims=(1,)) + D * closer
+
+
+class Go1BridgeWrapper(TaskWrapper):
+    """(ref go1_bridge_wrapper.py)."""
+
+    has_success = True
+
+    @property
+    def obs_dim(self):
+        return 12
+
+    def _success(self, state, obs, extra):
+        # opponent knocked off the bridge (success-term condition)
+        return obs.base_pos[:, 1, 2] < 0.5
+
+    def _transform_actions(self, actions):
+        return _mirror_y(actions)
+
+    def _extra_init(self, state, obs):
+        return {"target": torch.flip(obs.base_pos, dims=(1,))}
+
+    def _obs(self, state, obs, extra):
+        bi = self._base_info(obs)
+        o = torch.cat([bi, torch.flip(bi, dims=(1,))], dim=-1)
+        span = torch.abs(extra["target"][:, 0, 0] + extra["target"][:, 1, 0])
+        o1 = o[:, 1].clone()
+        # agent 1 sees the track from its own end: x from the far end, y mirrored
+        o1[:, 0] = span - o1[:, 0]
+        o1[:, 4] = -o1[:, 4]
+        o1[:, 6] = span - o1[:, 6]
+        o1[:, 10] = -o1[:, 10]
+        return torch.stack([o[:, 0], o1], dim=1)
+
+    def _reward(self, state, obs, extra, actions, info):
+        E, A = self.num_envs, self.num_agents
+        s = self.scales
+        z = obs.base_pos[..., 2]
+        x = obs.base_pos[..., 0]
+        r0 = torch.zeros(E, device=self.device)
+        terms = {}
+        if s.get("success_reward_scale", 0) != 0:
+            r = torch.where(z[:, 1] < 0.5, float(s["success_reward_scale"]), 0.0)
+            r0 = r0 + r
+            terms["success reward"] = _perenv(r)
+        if s.get("punishment_scale", 0) != 0:
+            pn = torch.where(z[:, 0] < 0.5, float(s["punishment_scale"]), 0.0)
+            r0 = r0 - pn
+            terms["punishment"] = _perenv(pn)
+        if s.get("target_reward_scale", 0) != 0:
+            r = torch.where(x[:, 0] > extra["target"][:, 0, 0],
+                            float(s["target_reward_scale"]), 0.0)
+            r0 = r0 + r
+            terms["target reward"] = _perenv(r)
+        rew = torch.cat([r0[:, None], torch.zeros((E, A - 1), device=self.device)], dim=1)
+        return rew, extra, terms
+
+    def _selfplay_reward(self, pre_state, pre_obs, reward, extra):
+        """Per-seat mirror of the agent-0 laws (ref go1_bridge_wrapper.py):
+        +S when the opponent drops below the deck (z < 0.5), -P for falling
+        oneself, +T for reaching the opponent's start (agent 0 crosses in +x,
+        agent 1 in -x). Pre-reset state."""
+        s = self.scales
+        z = pre_obs.base_pos[..., 2]
+        x = pre_obs.base_pos[..., 0]
+        fell = (z < 0.5).to(torch.float32)
+        crossed = torch.stack([x[:, 0] > extra["target"][:, 0, 0],
+                               x[:, 1] < extra["target"][:, 1, 0]], dim=1).to(torch.float32)
+        S = s.get("success_reward_scale", 0.0)
+        P = s.get("punishment_scale", 0.0)
+        T = s.get("target_reward_scale", 0.0)
+        return S * torch.flip(fell, dims=(1,)) - P * fell + T * crossed
+
+
+class Go1DoorWrapper(TaskWrapper):
+    """Push-open door (present but unregistered in the reference; simple
+    pass-the-door shaping, as the JAX package has it)."""
+
+    has_success = True
+
+    @property
+    def obs_dim(self):
+        return 12 + self.num_agents + 2
+
+    def _door_x(self):
+        return self.bt["init"]["block_length"] + self.bt["gate"]["block_length"] / 2
+
+    def _success(self, state, obs, extra):
+        # all agents pushed through the doorway
+        return (obs.base_pos[..., 0] > self._door_x()).all(dim=1)
+
+    def _extra_init(self, state, obs):
+        return {"last_x": obs.base_pos[..., 0], "door_q": state.phys.npcs.q[:, 0, 0]}
+
+    def _obs(self, state, obs, extra):
+        A = self.num_agents
+        bi = self._base_info(obs)
+        d = torch.stack([state.phys.npcs.q[:, 0, 0], state.phys.npcs.qd[:, 0, 0]], -1)
+        return torch.cat([self._ids(), bi, torch.flip(bi, dims=(1,)),
+                          d[:, None, :].expand(-1, A, -1)], dim=-1)
+
+    def _reward(self, state, obs, extra, actions, info):
+        E, A = self.num_envs, self.num_agents
+        s = self.scales
+        x = obs.base_pos[..., 0]
+        rew = torch.zeros((E, A), device=self.device)
+        terms = {}
+        if s.get("target_reward_scale", 0) != 0:
+            dx = (x - extra["last_x"]).sum(dim=1)
+            dx = torch.where(info["reset_mask"], 0.0, dx)
+            r = s["target_reward_scale"] * dx
+            rew = rew + r[:, None]
+            terms["target reward"] = _perenv(r)
+        if s.get("success_reward_scale", 0) != 0:
+            r = s["success_reward_scale"] * (x > self._door_x()).to(torch.float32)
+            rew = rew + r
+            terms["success reward"] = _perenv(r)
+        return rew, {**extra, "last_x": x, "door_q": state.phys.npcs.q[:, 0, 0]}, terms

@@ -3,8 +3,9 @@
 Counterpart of `mqe_tpu/physics/model.py` (Isaac Gym's asset API in the
 reference, ref mqe/envs/base/legged_robot.py:763-801): a model is a set of
 static arrays (tree topology, inertias, joint frames, collision spheres and
-primitives). The specs are the JSON files under `mqe_tpu/assets/`, read in
-place by path.
+primitives); a static fixture (`StaticGeoms`) is world-welded boxes and
+vertical cylinders. The specs are the JSON files under `mqe_tpu/assets/`,
+read in place by path.
 
 The plain dynamics (physics/soa.py) folds these constants in as python
 floats; the CUDA kernel (csrc/fused_step.cu) reads them from one small
@@ -93,6 +94,17 @@ class BodyModel:
         )
 
 
+@dataclass(frozen=True)
+class StaticGeoms:
+    """World-welded collision geometry (bridge deck, wrestling ring, ...)."""
+
+    boxes_center: np.ndarray      # (nbox, 3)
+    boxes_half: np.ndarray        # (nbox, 3)
+    cyl_center: np.ndarray        # (ncyl, 3)
+    cyl_radius: np.ndarray        # (ncyl,)
+    cyl_half_length: np.ndarray   # (ncyl,)
+
+
 def load_spec(name: str) -> dict:
     with open(os.path.join(ASSETS_DIR, f"{name}.json")) as f:
         return json.load(f)
@@ -161,6 +173,19 @@ def load_model(name: str, root_free: bool = True) -> BodyModel:
             [list(p["size"]) + [0.0] * (3 - len(p["size"])) for p in prims]
         ).reshape(-1, 3),
         prim_tags=tuple(p["tag"] for p in prims),
+    )
+
+
+def load_static_geoms(name: str) -> StaticGeoms:
+    spec = load_spec(name)
+    boxes = spec.get("static_boxes", [])
+    cyls = spec.get("static_cylinders", [])
+    return StaticGeoms(
+        boxes_center=np.array([b["center"] for b in boxes]).reshape(-1, 3),
+        boxes_half=np.array([b["half"] for b in boxes]).reshape(-1, 3),
+        cyl_center=np.array([c["center"] for c in cyls]).reshape(-1, 3),
+        cyl_radius=np.array([c["radius"] for c in cyls]).reshape(-1),
+        cyl_half_length=np.array([c["half_length"] for c in cyls]).reshape(-1),
     )
 
 

@@ -1,12 +1,13 @@
 """Composed physics of the robots and NPCs of a batch of envs, one substep
 at a time.
 
-PyTorch counterpart of `mqe_tpu/physics/scene.py::substep_batch` for scenes
-without static fixtures: forward kinematics of the robots' collision spheres
-and of the NPCs' bodies and spheres -> contact forces against the ground, the
-env's wall boxes, the other robots' coarse spheres and the NPCs' collision
-primitives (with the reaction wrench on the NPC bodies), and of the NPCs'
-spheres against the ground, the boxes and each other (physics/contact.py,
+PyTorch counterpart of `mqe_tpu/physics/scene.py::substep_batch`: forward
+kinematics of the robots' collision spheres and of the NPCs' bodies and
+spheres -> contact forces against the ground, the env's wall boxes and static
+fixtures (boxes and vertical cylinders), the other robots' coarse spheres and
+the NPCs' collision primitives (with the reaction wrench on the NPC bodies),
+and of the NPCs' spheres against the ground, the boxes, the fixtures and each
+other (physics/contact.py,
 batched over the env axis where the JAX package vmaps) -> the dynamics
 substep of the robots, then of the NPCs. The sphere FK, the full FK and the
 dynamics substep are the entry points of physics/fused_step.py: CUDA kernels
@@ -53,6 +54,14 @@ class Terrain:
     origin: torch.Tensor    # (2,) world xy of cell (0, 0)
     scale: float            # meters per cell
     boxes: torch.Tensor     # (E, nbox, 7) per env: center(3) half(3) valid
+    # (E, G, 8) per env: kind, center(3), p0, p1, p2, valid; a box row's p is
+    # its half extents, a cylinder row's (radius, half length, 0)
+    static_geoms: torch.Tensor
+
+
+# static geom row kinds
+SG_BOX = 0.0
+SG_CYL = 1.0
 
 
 @dataclass
@@ -101,7 +110,8 @@ class SceneModel:
 
 def _terrain_and_box_force(pos, vel, radius, terrain: Terrain, params, mu_scale,
                            flat_height=None):
-    """Force on spheres from the ground and each env's wall boxes.
+    """Force on spheres from the ground, each env's wall boxes and its static
+    geoms, summed in that order.
 
     pos/vel: (E, S, 3); radius: (S,); mu_scale: (E,). Returns (E, S, 3).
     """
@@ -119,6 +129,16 @@ def _terrain_and_box_force(pos, vel, radius, terrain: Terrain, params, mu_scale,
             boxes[:, None, :, 0:3], boxes[:, None, :, 3:6], params, mu[..., None],
         )                                                   # (E, S, nbox, 3)
         f = f + (fb * boxes[:, None, :, 6, None]).sum(dim=2)
+    sg = terrain.static_geoms                               # (E, G, 8)
+    if sg.shape[1]:
+        x, v, r = pos[:, :, None, :], vel[:, :, None, :], radius[None, :, None]
+        center, p = sg[:, None, :, 1:4], sg[:, None, :, 4:7]
+        # both forces on every row, the row's kind choosing, as JAX computes it
+        f_box = C.sphere_box(x, v, r, center, p, params, mu[..., None])
+        f_cyl = C.sphere_vertical_cylinder(x, v, r, center, p[..., 0], p[..., 1], params,
+                                           mu[..., None])
+        fg = torch.where((sg[:, None, :, 0] == SG_CYL)[..., None], f_cyl, f_box)
+        f = f + (fg * sg[:, None, :, 7, None]).sum(dim=2)
     return f
 
 

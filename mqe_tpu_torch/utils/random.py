@@ -17,12 +17,21 @@ class Draws:
     def uniform(self, name: str, shape, lo: float, hi: float, device) -> torch.Tensor:
         """U[lo, hi) of `shape` (float32), or the value given under `name`."""
         if name in self.given:
-            t = torch.as_tensor(self.given[name], dtype=torch.float32, device=device)
-            if tuple(t.shape) != tuple(shape):
-                raise ValueError(f"draw {name!r}: given shape {tuple(t.shape)}, expected {tuple(shape)}")
-            return t
+            return self._given(name, shape, device)
         u = torch.rand(tuple(shape), generator=self.generator, device=device)
         return lo + (hi - lo) * u
+
+    def normal(self, name: str, shape, device) -> torch.Tensor:
+        """N(0, 1) of `shape` (float32), or the value given under `name`."""
+        if name in self.given:
+            return self._given(name, shape, device)
+        return torch.randn(tuple(shape), generator=self.generator, device=device)
+
+    def _given(self, name, shape, device):
+        t = torch.as_tensor(self.given[name], dtype=torch.float32, device=device)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"draw {name!r}: given shape {tuple(t.shape)}, expected {tuple(shape)}")
+        return t
 
     def state(self, name: str, build):
         """A random state object: the one given under `name`, else build()."""

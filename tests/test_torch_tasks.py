@@ -12,7 +12,11 @@ and the masked reset, against recorded JAX steps; the base wrapper's parts.
   (tests/goldens/torch_go1gate_reset_step.npz, and the "reset-step" case of
   torch_go1pushbox_step.npz).
 - The base wrapper's geometry helpers, sizes, hooks and observation against
-  the JAX package's wrappers, and what the port still refuses.
+  the JAX package's wrappers, what the port still refuses, and that its
+  registry has the JAX package's task names.
+
+tests/test_torch_football.py, tests/test_torch_fixtures.py and
+tests/test_torch_sheep.py hold the other ten tasks, with the helpers below.
 
 tools/make_torch_goldens.py writes the records. Tolerances are those of
 tests/test_torch_env.py: tests/test_soa_episode.py::TOLS on the agents' state
@@ -27,7 +31,7 @@ import torch
 from mqe_tpu_torch.envs import tasks as T
 from mqe_tpu_torch.envs import wrappers as W
 from mqe_tpu_torch.envs.go1_env import Go1Env
-from mqe_tpu_torch.envs.registry import NOT_PORTED
+from mqe_tpu_torch.envs.registry import ENV_DICT
 from mqe_tpu_torch.envs.registry import make_mqe_env as make_torch_env
 from mqe_tpu_torch.utils.convert import env_state_from_numpy
 from test_torch_env import OTHER_TOLS, TOLS, _tree
@@ -52,12 +56,17 @@ def _diff(name, a, b, tol):
     return d
 
 
-def _compare_step(rec, case, task, draws=None):
+def _compare_step(rec, case, task, draws=None, selfplay=False):
     """Step the port from the recorded start; compare with the recorded step.
-    Returns (port outputs, the differences)."""
+    The sheep script's recorded draw goes in under "npc_noise"; `selfplay`
+    turns the wrapper's flag on. Returns (port outputs, JAX's step)."""
     wrap, _ = make_torch_env(task, num_envs=NUM_ENVS, seed=0, device="cpu")
+    wrap.selfplay = selfplay
     ts_t = env_state_from_numpy(_tree(rec, f"{case}/start"), device="cpu")
-    draws = wrap.env.draws(draws) if draws else None
+    given = dict(draws or {})
+    if f"{case}/npc_noise" in rec:
+        given["npc_noise"] = rec[f"{case}/npc_noise"]
+    draws = wrap.env.draws(given) if given else None
     out = wrap.step(ts_t, torch.as_tensor(rec[f"{case}/actions"]), draws)
     ts1_t, obs_t, rew_t, done_t, info_t = out
     ts1_j = _tree(rec, f"{case}/out")
@@ -97,6 +106,12 @@ def test_step_matches_jax(task, case):
 def test_reset_step_matches_jax(task, name):
     """Timeout in every env: the masked reset takes JAX's fresh state, the
     wrapper zeroes its progress terms and starts fresh extras."""
+    reset_step_matches(task, name)
+
+
+def reset_step_matches(task, name):
+    """The "reset-step" case of the record `name`, replayed and compared
+    field by field. Returns (port outputs, JAX's step, the fresh state)."""
     rec = _record(name)
     case = "reset-step"
     assert rec[f"{case}/done"].all()
@@ -117,10 +132,13 @@ def test_reset_step_matches_jax(task, name):
         np.testing.assert_array_equal(getattr(ts1.env.dr, k).numpy(), getattr(j_env.dr, k), err_msg=k)
     np.testing.assert_array_equal(ts1.env.phys.npcs.pos.numpy(), fresh.phys.npcs.pos.numpy())
     np.testing.assert_array_equal(info["ep_success"].numpy(), np.zeros(NUM_ENVS, bool))
+    return (ts1, obs, rew, done, info), ts1_j, fresh
 
 
-@pytest.mark.parametrize("task", ("go1gate",) + TASKS)
-def test_wrapper_sizes_and_geometry_match_jax(task):
+def wrapper_sizes_match(task):
+    """The port's wrapper of `task` against the JAX package's, built (not
+    run) at 2 envs: sizes, block geometry, NPC init and the scene's NPC
+    flags. Returns (JAX wrapper, port wrapper)."""
     from mqe_tpu.envs.registry import make_mqe_env as make_jax_env
 
     jwrap, _ = make_jax_env(task, num_envs=NUM_ENVS, seed=0)
@@ -129,6 +147,8 @@ def test_wrapper_sizes_and_geometry_match_jax(task):
     for attr in ("obs_dim", "action_dim", "num_agents", "num_npcs", "has_success", "selfplay",
                  "selfplay_punishment"):
         assert getattr(twrap, attr) == getattr(jwrap, attr), attr
+    assert (getattr(twrap, "controlled_agents", None)
+            == getattr(jwrap, "controlled_agents", None))
     options = twrap.bt["options"]
     assert twrap._gate_x(*options) == jwrap._gate_x(*options)
     for name in set(options):
@@ -141,6 +161,12 @@ def test_wrapper_sizes_and_geometry_match_jax(task):
                                   np.asarray(jwrap.env.npc_default_q))
     assert twrap.env.scene.num_npcs == jwrap.env.scene.num_npcs
     assert twrap.env.scene.npc_root_free == jwrap.env.scene.npc_root_free
+    return jwrap, twrap
+
+
+@pytest.mark.parametrize("task", ("go1gate",) + TASKS)
+def test_wrapper_sizes_and_geometry_match_jax(task):
+    wrapper_sizes_match(task)
 
 
 def test_rl_prescale_and_observe():
@@ -200,19 +226,21 @@ class _Policy(T.Go1GateCfg):
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (T.Go1WrestlingCfg, "static fixtures (ROADMAP Queue A item 11)"),
-    (T.SingleSheepCfg, "'sheep' NPC behaviour (ROADMAP Queue A item 11)"),
-    (T.Go1FootballDefenderCfg, "'defender' NPC behaviour (ROADMAP Queue A item 11)"),
     (_Camera, "cameras (ROADMAP Queue A item 14)"),
     (_Policy, "backend (ROADMAP Queue A item 12)"),
-], ids=["static-fixture", "sheep", "defender", "camera", "policy-backend"])
+], ids=["camera", "policy-backend"])
 def test_what_the_port_refuses_names_its_roadmap_item(cfg, item):
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
         Go1Env(cfg, num_envs=NUM_ENVS, device="cpu")
 
 
 def test_tasks_not_ported_name_item_11():
-    assert len(NOT_PORTED) == 10 and not set(NOT_PORTED) & {"go1gate", *TASKS}
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
-            make_torch_env(name, num_envs=NUM_ENVS, device="cpu")
+    """No task is left to item 11: the port's registry has exactly the JAX
+    package's task names, each with the wrapper of the same name (the JAX
+    registry is imported, nothing of it run)."""
+    from mqe_tpu.envs.registry import ENV_DICT as JAX_ENV_DICT
+
+    assert list(ENV_DICT) == list(JAX_ENV_DICT)
+    for name, entry in JAX_ENV_DICT.items():
+        assert ENV_DICT[name]["wrapper"].__name__ == entry["wrapper"].__name__, name
+        assert ENV_DICT[name]["config"].__name__ == entry["config"].__name__, name

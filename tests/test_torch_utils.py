@@ -91,10 +91,22 @@ def test_tree_map_and_env_state_to():
 
 
 def test_other_tasks_name_their_roadmap_item():
+    """A config the port still refuses, one with an onboard camera, names
+    its ROADMAP item."""
     from mqe_tpu_torch.envs.registry import make_mqe_env
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
-        make_mqe_env("go1sheep-easy", num_envs=2, device="cpu")
+    def camera(cfg):
+        class cfgs(cfg.obs.cfgs):
+            depth_image = True
+
+        class obs(cfg.obs):
+            pass
+
+        obs.cfgs = cfgs
+        return type("CameraCfg", (cfg,), {"obs": obs})
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
+        make_mqe_env("go1sheep-easy", num_envs=2, device="cpu", custom_cfg=camera)
 
 
 def test_entry_points_default_to_the_card():

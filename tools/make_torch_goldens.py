@@ -17,9 +17,16 @@ step keys split from PRNGKey(1). The cases start from:
     takes the masked reset. Its record also holds "fresh", the reset state
     the JAX step drew (`_reset_all` of the third of
     jax.random.split(PRNGKey(7), 4)), which the port takes through `Draws`.
+  - "selfplay": the in-contact state, stepped by a second wrapper of the
+    same env with `selfplay = True` (the competitive tasks' per-seat reward).
 From each start, one step with that start's actions and PRNGKey(7) is
 recorded: the start state, the actions, and the step's state, observations,
 reward and done. Each pytree is flattened to "<case>/<record>/<path>" keys.
+The actions are those of the robots the wrapper controls
+(`controlled_agents`, 2 of football-defender's 3). For the sheep tasks each
+case also holds "<case>/npc_noise", the step's normal draw of the sheep
+script (`jax.random.normal` of the first of jax.random.split(PRNGKey(7), 4),
+(E, N, 3)), which the port takes through `Draws` under that name.
 
 torch_npc_substep.npz holds one `scene.substep_batch` with NPCs at 2 envs
 (op by op, no jit) for each case of `NPC_CASES`, from hand-placed states:
@@ -32,6 +39,13 @@ model put in the task's place, or ""), "<case>/dt", the inputs
 "<case>/{agents,npcs}/<field>", "<case>/dr/{mu,payload,com}", "<case>/tau",
 "<case>/npc_tau", and JAX's "<case>/out/{agents,npcs}/<field>" and
 "<case>/contact/{sphere_force,npc_sphere_force,feet_force}".
+
+torch_static_substep.npz holds the same record for `STATIC_CASES`: robots
+standing on and against the go1wrestling ring (a static cylinder), on the
+go1bridge deck and against its side (static boxes), and four go1football-2vs2
+robots, one with its head in the ball (the ball's sphere primitive). The
+static tasks' scenes have no colliding NPC: their NPC is the welded anchor,
+which the substep passes through.
 """
 import os
 import sys
@@ -48,7 +62,8 @@ import numpy as np  # noqa: E402
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests", "goldens")
 NUM_ENVS = 2
 WARM_STEPS = 25
-STARTS = {"post-reset": 0, "in-contact": WARM_STEPS, "reset-step": WARM_STEPS}
+STARTS = {"post-reset": 0, "in-contact": WARM_STEPS, "reset-step": WARM_STEPS,
+          "selfplay": WARM_STEPS}
 ACTOR_FIELDS = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")
 
 
@@ -70,7 +85,8 @@ def record(task="go1gate", cases=("post-reset", "in-contact")) -> dict:
     wrap, _ = make_mqe_env(task, num_envs=NUM_ENVS, seed=0)
     ts, _ = wrap.reset(jax.random.PRNGKey(0))
     rng = np.random.RandomState(3)
-    acts = rng.uniform(-1, 1, (WARM_STEPS + 1, NUM_ENVS, wrap.num_agents, 3)).astype(np.float32)
+    nact = getattr(wrap, "controlled_agents", wrap.num_agents)
+    acts = rng.uniform(-1, 1, (WARM_STEPS + 1, NUM_ENVS, nact, 3)).astype(np.float32)
     key = jax.random.PRNGKey(1)
     states = [ts]
     for t in range(WARM_STEPS):
@@ -87,7 +103,15 @@ def record(task="go1gate", cases=("post-reset", "in-contact")) -> dict:
                 episode_length=jnp.full((NUM_ENVS,), last, dtype=jnp.int32)))
             k_reset = jax.random.split(jax.random.PRNGKey(7), 4)[2]
             rec.update(_flat(f"{case}/fresh", wrap.env._reset_all(k_reset)))
-        ts1, obs, rew, done, _ = wrap.step(ts0, acts[start], jax.random.PRNGKey(7))
+        stepper = wrap
+        if case == "selfplay":
+            stepper = type(wrap)(wrap.env)  # the flag is read when the step is traced
+            stepper.selfplay = True
+        if wrap.env.npc_behavior == "sheep":
+            k_npc = jax.random.split(jax.random.PRNGKey(7), 4)[0]
+            rec[f"{case}/npc_noise"] = np.asarray(
+                jax.random.normal(k_npc, (NUM_ENVS, wrap.num_npcs, 3)))
+        ts1, obs, rew, done, _ = stepper.step(ts0, acts[start], jax.random.PRNGKey(7))
         rec.update(_flat(f"{case}/start", ts0))
         rec.update(_flat(f"{case}/out", ts1))
         rec[f"{case}/actions"] = acts[start]
@@ -167,14 +191,55 @@ def _balls_state(env, rng):
     return ag, _npcs(np.stack([b0, b1], axis=1), z, z, rng)
 
 
+def _anchor(env, rng):
+    """The welded NPC anchor of a static-fixture task, where the env puts it."""
+    pos = np.asarray(env.npc_init)[None, :, :3] + np.asarray(env.env_origins)[:, None] * [1, 1, 0]
+    z = np.zeros((NUM_ENVS, 1, 0))
+    return _npcs(pos, z, z, rng)
+
+
+def _wrestling_state(env, rng):
+    ag = _agents(env, rng)
+    ring = np.asarray(env.static_geoms)[:, 0]               # (E, 8): kind, center, r, h/2
+    on_top = lambda e, y: ring[e, 1:4] + np.array([0.0, y, ring[e, 5] + 0.26])
+    ag["pos"][0, 0], ag["pos"][0, 1] = on_top(0, 1.0), on_top(0, -1.0)  # env 0: both on the ring
+    ag["pos"][1, 0] = ring[1, 1:4] + np.array([-ring[1, 4] - 0.25, 0.0, 0.05])  # head into the side
+    ag["pos"][1, 1] = on_top(1, -1.0)
+    ag["lin_vel"] *= 0.1                                    # feet not lifting off the ring
+    return ag, _anchor(env, rng)
+
+
+def _bridge_state(env, rng):
+    ag = _agents(env, rng)
+    sg = np.asarray(env.static_geoms)                       # rows: deck, +x and -x platforms
+    deck, plat = sg[:, 0], sg[:, 2]
+    for e in range(NUM_ENVS):
+        ag["pos"][e, 0] = deck[e, 1:4] + np.array([-1.0, 0.0, deck[e, 6] + 0.28])  # on the deck
+    ag["pos"][0, 1] = plat[0, 1:4] + np.array([0.0, 0.3, plat[0, 6] + 0.28])       # on a platform
+    ag["pos"][1, 1] = deck[1, 1:4] + np.array([0.5, -deck[1, 5] - 0.12, 0.0])  # into the side
+    return ag, _anchor(env, rng)
+
+
+def _ball_state(env, rng):
+    ag = _agents(env, rng)
+    ag["pos"][..., :2] += np.asarray(env.agent_init)[None, :, :2]  # at their spawn points
+    ag["pos"][1, 2, 2] = 0.2                                # env 1: a crouching robot
+    ball = ag["pos"][:, 2] + np.array([0.27 + 0.11, 0.0, 0.0])  # at robot 2's head
+    z = np.zeros((NUM_ENVS, 1, 0))
+    return ag, _npcs(ball[:, None], z, z, rng)
+
+
 # case: (task, NPC model put in the task's place with 2 NPCs or "", state)
 NPC_CASES = {"pushbox": ("go1pushbox", "", _pushbox_state),
              "seesaw": ("go1seesaw", "", _seesaw_state),
              "two-balls": ("go1pushbox", "ball", _balls_state)}
+STATIC_CASES = {"wrestling-ring": ("go1wrestling", "", _wrestling_state),
+                "bridge": ("go1bridge", "", _bridge_state),
+                "football-ball": ("go1football-2vs2", "", _ball_state)}
 
 
-def record_npc_substep(cases=tuple(NPC_CASES)) -> dict:
-    """The record of one JAX `substep_batch` with NPCs for each of `cases`."""
+def record_npc_substep(cases=tuple(NPC_CASES), table=NPC_CASES) -> dict:
+    """The record of one JAX `substep_batch` for each of `cases` of `table`."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -186,7 +251,7 @@ def record_npc_substep(cases=tuple(NPC_CASES)) -> dict:
     E = NUM_ENVS
     rec = {}
     for case in cases:
-        task, npc_name, state = NPC_CASES[case]
+        task, npc_name, state = table[case]
         env = make_mqe_env(task, num_envs=E, seed=0)[0].env
         jscene = env.scene
         if npc_name:
@@ -197,7 +262,7 @@ def record_npc_substep(cases=tuple(NPC_CASES)) -> dict:
         ex = dict(mu=rng.uniform(0.5, 1.5, E), payload=rng.rand(E, A),
                   com=rng.randn(E, A, 3) * 0.01)
         tau = rng.randn(E, A, 12) * 3.0
-        npc_tau = rng.randn(E, N, jscene.npc.nq) * 2.0
+        npc_tau = rng.randn(E, N, jscene.npc.nq if N else 0) * 2.0
         f32 = lambda d: {k: np.asarray(v, np.float32) for k, v in d.items()}
         ag, npc, ex = f32(ag), f32(npc), f32(ex)
         tau, npc_tau = tau.astype(np.float32), npc_tau.astype(np.float32)
@@ -233,6 +298,25 @@ FILES = {
                                          ("post-reset", "in-contact", "reset-step")),
     "torch_go1seesaw_step.npz": partial(record, "go1seesaw", ("post-reset", "in-contact")),
     "torch_npc_substep.npz": record_npc_substep,
+    "torch_go1football-defender_step.npz": partial(record, "go1football-defender",
+                                                   ("post-reset", "in-contact")),
+    "torch_go1football-1vs1_step.npz": partial(record, "go1football-1vs1",
+                                               ("post-reset", "in-contact")),
+    "torch_go1football-2vs2_step.npz": partial(record, "go1football-2vs2",
+                                               ("post-reset", "in-contact")),
+    "torch_go1tug_step.npz": partial(record, "go1tug", ("post-reset", "in-contact", "selfplay")),
+    "torch_go1wrestling_step.npz": partial(record, "go1wrestling",
+                                           ("post-reset", "in-contact", "selfplay")),
+    "torch_go1revolvingdoor_step.npz": partial(record, "go1revolvingdoor",
+                                               ("post-reset", "in-contact", "selfplay")),
+    "torch_go1bridge_step.npz": partial(record, "go1bridge",
+                                        ("post-reset", "in-contact", "selfplay")),
+    "torch_go1door_step.npz": partial(record, "go1door", ("post-reset", "in-contact")),
+    "torch_go1sheep-easy_step.npz": partial(record, "go1sheep-easy",
+                                            ("post-reset", "in-contact")),
+    "torch_go1sheep-hard_step.npz": partial(record, "go1sheep-hard",
+                                            ("post-reset", "in-contact", "reset-step")),
+    "torch_static_substep.npz": partial(record_npc_substep, tuple(STATIC_CASES), STATIC_CASES),
 }
 
 

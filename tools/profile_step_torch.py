@@ -58,8 +58,9 @@ def main():
                          capture_output=True, text=True).stdout.strip()
     wrap, _ = make_mqe_env(args.task, num_envs=args.num_envs, seed=0, device="cuda")
     ts, _ = wrap.reset()
+    nact = getattr(wrap, "controlled_agents", wrap.num_agents)
     cmds = torch.as_tensor(np.random.RandomState(1).uniform(
-        -1, 1, (args.num_envs, wrap.num_agents, 3)).astype(np.float32), device="cuda")
+        -1, 1, (args.num_envs, nact, 3)).astype(np.float32), device="cuda")
     for _ in range(2):
         ts = wrap.step(ts, cmds)[0]
     torch.cuda.synchronize()
@@ -101,6 +102,8 @@ def main():
         "dynamics kernel (wrapper + launches)": (scene, "step_actor_kernel"),
         "termination": (go1_env.Go1Env, "_termination"),
         "reset draw + masked reset + obs": (go1_env.Go1Env, "_step_finish"),
+        "NPC script (sheep)": (go1_env.Go1Env, "_npc_script"),
+        "defender script": (go1_env.Go1Env, "_defender_commands"),
     }
     for name, (owner, attr) in stages.items():
         setattr(owner, attr, timed(name, getattr(owner, attr)))
@@ -118,7 +121,8 @@ def main():
                         "dynamics kernel (wrapper + launches)"))
     ms["rest of the step"] = synced * 1e3 - sum(
         ms[k] for k in ("locomotion (trot + body policy)", "actuator net + torques",
-                        "substep_batch (all)", "termination", "reset draw + masked reset + obs"))
+                        "substep_batch (all)", "termination", "reset draw + masked reset + obs",
+                        "NPC script (sheep)", "defender script"))
 
     print(f"{args.task} {args.num_envs} envs on {smi}: {wall * 1e3:.2f} ms/step "
           f"({args.num_envs / wall:.1f} env-steps/s); under the profiler {prof_wall * 1e3:.2f} ms/step")
