@@ -9,15 +9,17 @@ Phases, each printing one line with its elapsed seconds:
                of each kernel (the step kernel must have no stack or spills);
   3. kernel  - the CUDA substep kernel against its plain PyTorch version
                (physics/soa.py::step_actor) on the card at the tolerances of
-               tests/test_pallas_step.py: go1 at B = 8192 and 37, two small
-               NPC cases, and every NPC launch of the slices at its shape
+               tests/test_pallas_step.py: go1 at each B of the robots'
+               launches of the slices (`ROBOT_B`: 8192, 12,288, 16,384) and
+               at 37, two small NPC cases, and every NPC launch of the
+               slices at its shape
                (`NPC_LAUNCHES`: box, seesaw, ball, cylinder, revolving door,
                door at B = 4096, the sheep at 4096 and 36,864); then its
                device time per launch at each of those shapes
-               (torch.profiler), beside the plain version's time and the
+               (`device_ms`: a CUDA graph of 200 launches), beside the plain version's time and the
                bound of the card;
-  4. fk      - the sphere-FK kernel against soa.fk_spheres at the slice's
-               shape, go1 at B = 8192, and at B = 37 and 1 (and two NPC
+  4. fk      - the sphere-FK kernel against soa.fk_spheres at the slices'
+               shapes, go1 at each B of `ROBOT_B`, and at B = 37 and 1 (and two NPC
                models at 37 and 1), at the tolerance of
                tests/test_torch_soa.py::test_fk_matches_jax; its time and
                bound likewise, and its floor: the device time at B = 1;
@@ -69,6 +71,21 @@ PEAK_F32_PER_S = 67e12
 NAMES = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")
 TOLS = (1e-6, 1e-6, 1e-5, 1e-5, 1e-6, 1e-4)
 FK_TOL = 1e-6  # tests/test_torch_soa.py::test_fk_matches_jax
+
+KERNELS = {"fused_step_kernel": fused_step.step_actor_kernel,
+           "fk_spheres_kernel": fused_step.fk_spheres_kernel,
+           "fk_full_kernel": fused_step.fk_full_kernel}
+# task: timed steps. 20 for the earlier slices' tasks and for one task of
+# each new shape (4 robots, static geoms, 9 NPCs), 5 for the others
+SLICES = {"go1gate": 20, "go1pushbox": 20, "go1seesaw": 20, "go1football-2vs2": 20,
+          "go1wrestling": 20, "go1sheep-hard": 20, "go1football-defender": 5,
+          "go1football-1vs1": 5, "go1tug": 5, "go1revolvingdoor": 5, "go1bridge": 5,
+          "go1door": 5, "go1sheep-easy": 5}
+SLICE_ENVS = 4096
+# the robots' launches of the slices: B = envs x robots of each task SLICES
+# drives (8192 for two robots, 12,288 for football-defender's three, 16,384
+# for football-2vs2's four); the first is go1gate's
+ROBOT_B = sorted({SLICE_ENVS * ENV_DICT[t]["config"].env.num_agents for t in SLICES})
 
 T0 = time.perf_counter()
 
@@ -157,26 +174,24 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, kernel, n, chunk=20):
-    """Mean device milliseconds of the kernel named `kernel` over n calls of
-    fn(), from torch.profiler: the kernel's own time, without the host's
-    launch overhead, which exceeds it. The calls go in chunks with a
-    synchronize between them: with back-to-back launches of a few
-    microseconds the profiler dropped most records. The mean is over the
-    launches the profiler recorded, which may miss one of many."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
+def device_ms(fn, n=200, reps=5):
+    """Mean device milliseconds of one launch of fn(): n launches captured in
+    a CUDA graph, the graph replayed `reps` times between CUDA events. The
+    launches run back to back, without the host's launch overhead, which
+    exceeds a small launch's time. (torch.profiler's kernel records are not
+    used: in one run on the H100 they held 83 of 200 launches.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
             fn()
-            if (i + 1) % chunk == 0:
-                torch.cuda.synchronize()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.key_averages() if kernel in ev.key]
-    count = sum(ev.count for ev in evs)
-    if not n // 2 <= count <= n:
-        raise AssertionError(f"the profiler saw {count} launches of {kernel}, made {n}")
-    return sum(ev.self_device_time_total for ev in evs) / count / 1e3
+    graph.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps) / n
 
 
 def nbytes(tensors):
@@ -193,7 +208,7 @@ def bound(tensors_in, tensors_out, ops):
             nb, bytes_ms, ops_ms)
 
 
-def timing(phase, label, launch, kernel, call, plain, ins, outs, smi, floor=None):
+def timing(phase, label, launch, call, plain, ins, outs, smi, floor=None):
     """Time one kernel at one shape: its device time per launch into
     preallocated outputs (`launch`), the wrapper's time per call (checks,
     allocation, launch), the plain version's, and the card's bound for the
@@ -201,7 +216,7 @@ def timing(phase, label, launch, kernel, call, plain, ins, outs, smi, floor=None
     where the stage before just wrote them. `floor`, where given, launches
     the same kernel at B = 1: its device time is the least a launch of it
     takes. Returns the JSON fields."""
-    ms = device_ms(launch, kernel, 200)
+    ms = device_ms(launch)
     wrapper_ms = cuda_ms(call, 50)
     cuda_ms(plain, 1)
     plain_ms = cuda_ms(plain, 3)
@@ -209,7 +224,7 @@ def timing(phase, label, launch, kernel, call, plain, ins, outs, smi, floor=None
     out = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, wrapper_ms=wrapper_ms)
     floor_txt = ""
     if floor is not None:
-        out["floor_ms"] = device_ms(floor, kernel, 200)
+        out["floor_ms"] = device_ms(floor)
         floor_txt = f", floor (B = 1) {out['floor_ms']:.4f} ms/launch"
     say(phase, f"{label}: kernel {ms:.4f} ms/launch on the device (wrapper {wrapper_ms:.4f} "
         f"ms/call){floor_txt}, plain {plain_ms:.3f} ms/call; bound {b_ms:.4f} ms by {b_by} "
@@ -237,13 +252,15 @@ NPC_LAUNCHES = (("box", "box", True, 4096), ("seesaw", "seesaw", False, 4096),
 
 def phase_kernel(smi):
     go1 = go1_model()
-    # case 1: the slice's shape, go1 at B = 8192 with payload and com shift
-    B = 8192
-    args, payload, cshift = rand_state(go1, B, seed=0)
-    ref = soa.step_actor(go1, *args, payload=payload, com_shift=cshift)
-    out = fused_step.step_actor_kernel(go1, *args, payload=payload, com_shift=cshift)
-    torch.cuda.synchronize()
-    max_err = compare("kernel", "go1 B=8192 payload+com_shift", ref, out)
+    # case 1: the robots' launches of the slices, go1 at each B of ROBOT_B
+    # with payload and com shift
+    robots = {B: rand_state(go1, B, seed=0) for B in ROBOT_B}
+    max_err = 0.0
+    for B, (args, payload, cshift) in robots.items():
+        ref = soa.step_actor(go1, *args, payload=payload, com_shift=cshift)
+        out = fused_step.step_actor_kernel(go1, *args, payload=payload, com_shift=cshift)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare("kernel", f"go1 B={B} payload+com_shift", ref, out))
 
     # case 2: go1 at B = 37 with a per-body world wrench
     args2, _, _ = rand_state(go1, 37, seed=3)
@@ -275,19 +292,23 @@ def phase_kernel(smi):
             soa.step_actor(m, *a, extra_wrench=w, root_free=rf),
             fused_step.step_actor_kernel(m, *a, extra_wrench=w, root_free=rf)))
 
-    # time at the slices' shapes
+    # time at the slices' shapes: the JSON entry carries go1gate's robots'
+    # launch, "robots" the others, "npc" the NPC launches
+    def robot_timing(B):
+        args, payload, cshift = robots[B]
+        out = fused_step.step_actor_kernel(go1, *args, payload=payload, com_shift=cshift)
+        return timing(
+            "kernel", f"go1 B={B}",
+            lambda: fused_step.launch_step(go1, *args, payload, cshift, None, out, 0.0025, True),
+            lambda: fused_step.step_actor_kernel(go1, *args, payload=payload, com_shift=cshift),
+            lambda: soa.step_actor(go1, *args, payload=payload, com_shift=cshift),
+            (*args, payload, cshift), out, smi)
+
     entry = dict(
         name="fused_step_kernel", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
         replaces="mqe_tpu/physics/pallas_step.py:141", max_abs_err=max_err, library_ms=None,
-        **timing("kernel", f"go1 B={B}",
-                 lambda: fused_step.launch_step(go1, *args, payload, cshift, None, out, 0.0025,
-                                                True),
-                 "fused_step_kernel",
-                 lambda: fused_step.step_actor_kernel(go1, *args, payload=payload,
-                                                      com_shift=cshift),
-                 lambda: soa.step_actor(go1, *args, payload=payload, com_shift=cshift),
-                 (*args, payload, cshift), out, smi),
-    )
+        **robot_timing(ROBOT_B[0]))
+    entry["robots"] = {str(B): robot_timing(B) for B in ROBOT_B[1:]}
     entry["npc"] = {}
     for name, (m, a, w) in npc_cases.items():
         rf = m.root_free
@@ -295,7 +316,6 @@ def phase_kernel(smi):
         entry["npc"][name] = timing(
             "kernel", f"{name} B={a[0].shape[0]} NPC launch",
             lambda: fused_step.launch_step(m, *a, None, None, w, nout, 0.0025, rf),
-            "fused_step_kernel",
             lambda: fused_step.step_actor_kernel(m, *a, extra_wrench=w, root_free=rf),
             lambda: soa.step_actor(m, *a, extra_wrench=w, root_free=rf),
             (*a, w), nout, smi)
@@ -320,29 +340,34 @@ def fk_geometry_txt(m, B):
 
 def phase_fk(smi):
     go1 = go1_model()
-    B = 8192
     names, tols = ("sph_x", "sph_v"), (FK_TOL, FK_TOL)
     max_err = 0.0
-    for name, sizes in (("go1", (B, 37, 1)), ("seesaw", (37, 1)), ("ball", (37, 1))):
+    for name, sizes in (("go1", (*ROBOT_B, 37, 1)), ("seesaw", (37, 1)), ("ball", (37, 1))):
         m = go1 if name == "go1" else load_model(name, root_free=True)
         for b in sizes:
-            a = fk_state(m, b, seed=5 if b == B else 6)
+            a = fk_state(m, b, seed=5 if b in ROBOT_B else 6)
             out = fused_step.fk_spheres_kernel(m, *a)
             torch.cuda.synchronize()
             max_err = max(max_err, compare("fk", f"{name} B={b} ({fk_geometry_txt(m, b)})",
                                            soa.fk_spheres(m, *a), out, names, tols))
-    args = fk_state(go1, B, seed=5)
-    out = fused_step.fk_spheres_kernel(go1, *args)
     one = fk_state(go1, 1, seed=6)
     one_out = fused_step.fk_spheres_kernel(go1, *one)
-    return dict(
+
+    # the JSON entry carries go1gate's robots' launch and the floor,
+    # "robots" the robots' launches at the other B
+    def robot_timing(B, floor=None):
+        args = fk_state(go1, B, seed=5)
+        out = fused_step.fk_spheres_kernel(go1, *args)
+        return timing("fk", f"go1 B={B}", lambda: fused_step.launch_fk(go1, *args, *out),
+                      lambda: fused_step.fk_spheres_kernel(go1, *args),
+                      lambda: soa.fk_spheres(go1, *args), args, out, smi, floor=floor)
+
+    entry = dict(
         name="fk_spheres_kernel", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
         replaces="mqe_tpu/physics/soa.py:546", max_abs_err=max_err, library_ms=None,
-        **timing("fk", f"go1 B={B}", lambda: fused_step.launch_fk(go1, *args, *out),
-                 "fk_spheres_kernel", lambda: fused_step.fk_spheres_kernel(go1, *args),
-                 lambda: soa.fk_spheres(go1, *args), args, out, smi,
-                 floor=lambda: fused_step.launch_fk(go1, *one, *one_out)),
-    )
+        **robot_timing(ROBOT_B[0], floor=lambda: fused_step.launch_fk(go1, *one, *one_out)))
+    entry["robots"] = {str(B): robot_timing(B) for B in ROBOT_B[1:]}
+    return entry
 
 
 FK_FULL_NAMES = ("Rw", "pw", "vw", "sph_x", "sph_v")
@@ -371,7 +396,7 @@ def phase_fk_full(smi):
             one_out = fused_step.fk_full_kernel(m, *one)
             floor = lambda: fused_step.launch_fk_full(m, *one, one_out)  # noqa: E731
         t = timing("fk_full", f"{label} B={B}",
-                   lambda: fused_step.launch_fk_full(m, *args, out), "fk_full_kernel",
+                   lambda: fused_step.launch_fk_full(m, *args, out),
                    lambda: fused_step.fk_full_kernel(m, *args),
                    lambda: soa.fk_full(m, *args), args, out, smi, floor=floor)
         if label == "box":
@@ -384,11 +409,6 @@ def phase_fk_full(smi):
     )
 
 
-def controlled(wrap):
-    """The robots the wrapper takes actions for (2 of football-defender's 3)."""
-    return getattr(wrap, "controlled_agents", wrap.num_agents)
-
-
 def phase_check(task):
     """One step at 2 envs: kernels on the card vs plain on the CPU, with the
     same draws (the reset state, the sheep script's noise)."""
@@ -397,7 +417,7 @@ def phase_check(task):
     ts_c, _ = wrap_c.reset()
     ts_h = env_state_to(ts_c, "cpu")
     rng = np.random.RandomState(5)
-    acts = rng.uniform(-1, 1, (2, controlled(wrap_c), 3)).astype(np.float32)
+    acts = rng.uniform(-1, 1, (2, wrap_c.controlled_agents, 3)).astype(np.float32)
     noise = torch.as_tensor(rng.randn(2, wrap_c.num_npcs, 3).astype(np.float32))
     fresh = wrap_c.env.fresh_state()  # the reset state, should an env reset
     out_c = wrap_c.step(ts_c, torch.as_tensor(acts, device="cuda"),
@@ -431,25 +451,14 @@ def phase_check(task):
         + f", obs {obs_d:.3e}, reward {rew_d:.3e}, commands {cmd_d:.3e}")
 
 
-KERNELS = {"fused_step_kernel": fused_step.step_actor_kernel,
-           "fk_spheres_kernel": fused_step.fk_spheres_kernel,
-           "fk_full_kernel": fused_step.fk_full_kernel}
-# task: timed steps. 20 for the earlier slices' tasks and for one task of
-# each new shape (4 robots, static geoms, 9 NPCs), 5 for the others
-SLICES = {"go1gate": 20, "go1pushbox": 20, "go1seesaw": 20, "go1football-2vs2": 20,
-          "go1wrestling": 20, "go1sheep-hard": 20, "go1football-defender": 5,
-          "go1football-1vs1": 5, "go1tug": 5, "go1revolvingdoor": 5, "go1bridge": 5,
-          "go1door": 5, "go1sheep-easy": 5}
-
-
-def phase_slice(smi, task, num_envs=4096, steps=20):
+def phase_slice(smi, task, num_envs=SLICE_ENVS, steps=20):
     for wrapper in KERNELS.values():
         wrapper.launches = 0
     wrap, _ = make_mqe_env(task, num_envs=num_envs, seed=0, device="cuda")
     ts, obs = wrap.reset()
     torch.cuda.synchronize()
     say("slice", f"{task} {num_envs} envs built and reset, obs {tuple(obs.shape)}")
-    nact = controlled(wrap)
+    nact = wrap.controlled_agents
     cmds = torch.as_tensor(
         np.random.RandomState(1).uniform(-1, 1, (num_envs, nact, 3)).astype(np.float32),
         device="cuda")

@@ -179,10 +179,14 @@ class Go1Env:
         sgs = np.tile(static_rows[None], (E, 1, 1))
         sgs[:, :, 1:3] += np.asarray(self.build.env_origins[rows, cols][:, None, :2])
         self.static_geoms = t(sgs)                                     # (E, G, 8)
+        # the contact takes each kind's rows apart, without the kind column
+        # (and a cylinder's unused third size)
+        kind = static_rows[:, 0]
         self.terrain = S.Terrain(
             height=t(self.build.height), origin=t(self.build.origin),
             scale=float(self.build.scale), boxes=self.env_boxes,
-            static_geoms=self.static_geoms,
+            static_boxes=t(np.ascontiguousarray(sgs[:, kind == S.SG_BOX, 1:8])),
+            static_cyls=t(np.ascontiguousarray(sgs[:, kind == S.SG_CYL][..., [1, 2, 3, 4, 5, 7]])),
         )
 
         # the NPC collides unless a static fixture stands in for it
@@ -285,6 +289,11 @@ class Go1Env:
             ni[:, :3] = np.asarray(pos[:N], dtype=np.float32)
             ni[:, 6] = 1.0
             self.npc_init = t(ni)
+        if self.npc_behavior == "defender":
+            # the defender's gate: the far end of the pitch plane, per env
+            bt = cfg.terrain.BarrierTrack_kwargs
+            off = [bt["init"]["block_length"] + bt["plane"]["block_length"], 0.0, 0.0]
+            self.defender_gate = self.env_origins + t(np.asarray(off, dtype=np.float32))
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
 
@@ -611,10 +620,7 @@ class Go1Env:
         ag = state.phys.agents
         dpos = ag.pos[:, 2, :]                            # defender = 3rd agent
         ball = state.phys.npcs.pos[:, 0, :]
-        bt = self.cfg.terrain.BarrierTrack_kwargs
-        gate = self.env_origins + torch.tensor(
-            [bt["init"]["block_length"] + bt["plane"]["block_length"], 0.0, 0.0],
-            dtype=torch.float32, device=self.device)
+        gate = self.defender_gate
         target = 0.6 * ball + 0.4 * gate
         _, _, dyaw = quat_ops.get_euler_xyz_wrapped(ag.quat[:, 2])
         to_gate = gate - dpos

@@ -67,6 +67,12 @@ class TaskWrapper:
         self.bt = getattr(env.cfg.terrain, "BarrierTrack_kwargs", None)
         self.action_scale = torch.as_tensor(ACTION_SCALE, device=env.device)
 
+    @property
+    def controlled_agents(self) -> int:
+        """The robots the wrapper takes actions for; a task whose env scripts
+        some of its robots sets fewer."""
+        return self.num_agents
+
     # ---- per-task hooks ----
     @property
     def obs_dim(self) -> int:
@@ -473,6 +479,10 @@ class Go1FootballDefenderWrapper(TaskWrapper):
     controlled_agents = 2
     has_success = True
 
+    def __init__(self, env):
+        super().__init__(env)
+        self._gate_t = torch.tensor(self._gate(), dtype=torch.float32, device=self.device)
+
     @property
     def obs_dim(self):
         return 18 + 2
@@ -499,7 +509,7 @@ class Go1FootballDefenderWrapper(TaskWrapper):
         E = self.num_envs
         s = self.scales
         ball = self._ball(state)
-        gate = torch.tensor(self._gate(), dtype=torch.float32, device=self.device)
+        gate = self._gate_t
         rew = torch.zeros((E, 1), device=self.device)
         terms = {}
         if s.get("goal_reward_scale", 0) != 0:
@@ -521,6 +531,11 @@ class Go1FootballGameWrapper(TaskWrapper):
 
     has_success = True
 
+    def __init__(self, env):
+        super().__init__(env)
+        half = self.num_agents // 2
+        self._team = torch.tensor([0] * half + [1] * (self.num_agents - half), device=self.device)
+
     @property
     def obs_dim(self):
         return 18 + self.num_agents
@@ -540,37 +555,49 @@ class Go1FootballGameWrapper(TaskWrapper):
         return torch.cat([self._ids(), bi, torch.flip(bi, dims=(1,)), ball, bv], dim=-1)
 
     def _reward(self, state, obs, extra, actions, info):
-        A = self.num_agents
         ball = self._ball(state)
         goal_r = (ball[:, 0] > self._block_x("gate", occurrence=1)).to(torch.float32)
         goal_l = (ball[:, 0] < self._block_x("gate", occurrence=0)).to(torch.float32)
         scale = self.scales.get("goal_reward_scale", 10)
-        half = A // 2
-        team = torch.tensor([0] * half + [1] * (A - half), device=self.device)
         r_team0 = scale * (goal_r - goal_l)
-        rew = torch.where(team[None, :] == 0, r_team0[:, None], -r_team0[:, None])
+        rew = torch.where(self._team[None, :] == 0, r_team0[:, None], -r_team0[:, None])
         return rew, extra, {"goal reward": scale * (goal_r + goal_l)}
 
 
-def _mirror_y(actions):
-    """Mirror agent 1's (vy, yaw) for the symmetric competitive tasks
-    (ref go1_wrestling_wrapper.py:47 etc.)."""
-    sign = torch.ones_like(actions)
-    sign[:, 1, 1:] = -1.0
-    return actions * sign
+def _seat1_sign(width, cols, device):
+    """(2, width): 1, and -1 in seat 1's columns `cols`."""
+    sign = np.ones((2, width), dtype=np.float32)
+    sign[1, list(cols)] = -1.0
+    return torch.as_tensor(sign, device=device)
 
 
-def _mirror_cols(o, cols):
-    """o with agent 1's columns `cols` negated."""
-    sign = torch.ones_like(o)
-    sign[:, 1, list(cols)] = -1.0
-    return o * sign
-
-
-class Go1TugWrapper(TaskWrapper):
-    """(ref go1_tug_wrapper.py)."""
+class _MirroredWrapper(TaskWrapper):
+    """A symmetric competitive task: agent 1's (vy, yaw) command is mirrored
+    (ref go1_wrestling_wrapper.py:47 etc.), and the columns `mirror_cols` of
+    its observation are negated. The signs are made once."""
 
     has_success = True
+    mirror_cols = ()
+
+    def __init__(self, env):
+        super().__init__(env)
+        self._act_sign = _seat1_sign(3, (1, 2), self.device)
+        self._obs_sign = _seat1_sign(self.obs_dim, self.mirror_cols, self.device)
+
+    def _transform_actions(self, actions):
+        return actions * self._act_sign
+
+
+class Go1TugWrapper(_MirroredWrapper):
+    """(ref go1_tug_wrapper.py)."""
+
+    # agent 1's lateral quantities (ref go1_tug_wrapper.py:53-56)
+    mirror_cols = (1, 4, 6, 9)
+
+    def __init__(self, env):
+        super().__init__(env)
+        # per seat, the sign that puts the disc on one's own side
+        self._sgn = torch.tensor([-1.0, 1.0], device=self.device)
 
     @property
     def obs_dim(self):
@@ -579,9 +606,6 @@ class Go1TugWrapper(TaskWrapper):
     def _success(self, state, obs, extra):
         # agent 0 pulled the disc to its side (q < 0)
         return state.phys.npcs.q[:, 0, 0] < 0
-
-    def _transform_actions(self, actions):
-        return _mirror_y(actions)
 
     def _npc_dof(self, state):
         return state.phys.npcs.q[:, 0, 0], state.phys.npcs.qd[:, 0, 0]
@@ -602,9 +626,7 @@ class Go1TugWrapper(TaskWrapper):
                                 dim=-1, keepdim=True)
         npc = torch.stack([q, qd], dim=-1)[:, None, :].expand(-1, A, -1)
         lastq = extra["last_npc"][:, None, None].expand(-1, A, -1)
-        o = torch.cat([bi, npc, dis, lastq], dim=-1)
-        # mirror agent 1's lateral quantities (ref go1_tug_wrapper.py:53-56)
-        return _mirror_cols(o, (1, 4, 6, o.shape[-1] - 1))
+        return torch.cat([bi, npc, dis, lastq], dim=-1) * self._obs_sign
 
     def _reward(self, state, obs, extra, actions, info):
         E, A = self.num_envs, self.num_agents
@@ -647,9 +669,8 @@ class Go1TugWrapper(TaskWrapper):
         q = pre_state.phys.npcs.q[:, 0, 0]
         lastq = extra["last_npc"]
         # per-seat "favor": how far the disc sits on my side
-        sgn = torch.tensor([-1.0, 1.0], device=self.device)
-        favor = q[:, None] * sgn
-        improving = lastq[:, None] * sgn < favor
+        favor = q[:, None] * self._sgn
+        improving = lastq[:, None] * self._sgn < favor
         S = s.get("success_reward_scale", 0.0)
         P = s.get("punishment_reward_scale", 0.0)
         win = torch.where(favor > 0, S * favor, 0.0)
@@ -669,10 +690,10 @@ def _fallen(r_, p_):
     return (torch.abs(p_) > np.pi * 0.9) | (torch.abs(r_) >= np.pi * 0.4)
 
 
-class Go1WrestlingWrapper(TaskWrapper):
+class Go1WrestlingWrapper(_MirroredWrapper):
     """(ref go1_wrestling_wrapper.py)."""
 
-    has_success = True
+    mirror_cols = (1, 4, 7, 10)
 
     @property
     def obs_dim(self):
@@ -683,12 +704,9 @@ class Go1WrestlingWrapper(TaskWrapper):
         return _fallen(quat_ops.wrap_to_pi(obs.base_rpy[:, 1, 0]),
                        quat_ops.wrap_to_pi(obs.base_rpy[:, 1, 1]))
 
-    def _transform_actions(self, actions):
-        return _mirror_y(actions)
-
     def _obs(self, state, obs, extra):
         bi = self._base_info(obs)
-        return _mirror_cols(torch.cat([bi, torch.flip(bi, dims=(1,))], dim=-1), (1, 4, 7, 10))
+        return torch.cat([bi, torch.flip(bi, dims=(1,))], dim=-1) * self._obs_sign
 
     def _reward(self, state, obs, extra, actions, info):
         E, A = self.num_envs, self.num_agents
@@ -732,10 +750,15 @@ class Go1WrestlingWrapper(TaskWrapper):
         return S * opp.to(torch.float32) - P * fallen.to(torch.float32)
 
 
-class Go1RotationWrapper(TaskWrapper):
+class Go1RotationWrapper(_MirroredWrapper):
     """(ref go1_rotation_wrapper.py)."""
 
-    has_success = True
+    mirror_cols = (1, 4, 7, 10)
+
+    def __init__(self, env):
+        super().__init__(env)
+        self._target_t = torch.tensor([self._target_x(), 0.0], dtype=torch.float32,
+                                      device=self.device)
 
     @property
     def obs_dim(self):
@@ -745,22 +768,18 @@ class Go1RotationWrapper(TaskWrapper):
         # agent 0 through the revolving door past the target x
         return obs.base_pos[:, 0, 0] > self._target_x()
 
-    def _transform_actions(self, actions):
-        return _mirror_y(actions)
-
     def _target_x(self):
         return self.bt["rotation"]["block_length"] * 0.75 + self.bt["wall"]["block_length"]
 
     def _target_dist(self, obs):
-        tgt = torch.tensor([self._target_x(), 0.0], dtype=torch.float32, device=self.device)
-        return torch.linalg.norm(obs.base_pos[..., :2] - tgt, dim=-1)
+        return torch.linalg.norm(obs.base_pos[..., :2] - self._target_t, dim=-1)
 
     def _extra_init(self, state, obs):
         return {"last_dis": self._target_dist(obs)}
 
     def _obs(self, state, obs, extra):
         bi = self._base_info(obs)
-        return _mirror_cols(torch.cat([bi, torch.flip(bi, dims=(1,))], dim=-1), (1, 4, 7, 10))
+        return torch.cat([bi, torch.flip(bi, dims=(1,))], dim=-1) * self._obs_sign
 
     def _reward(self, state, obs, extra, actions, info):
         E, A = self.num_envs, self.num_agents
@@ -800,10 +819,8 @@ class Go1RotationWrapper(TaskWrapper):
         return S * passed - P * torch.flip(passed, dims=(1,)) + D * closer
 
 
-class Go1BridgeWrapper(TaskWrapper):
+class Go1BridgeWrapper(_MirroredWrapper):
     """(ref go1_bridge_wrapper.py)."""
-
-    has_success = True
 
     @property
     def obs_dim(self):
@@ -812,9 +829,6 @@ class Go1BridgeWrapper(TaskWrapper):
     def _success(self, state, obs, extra):
         # opponent knocked off the bridge (success-term condition)
         return obs.base_pos[:, 1, 2] < 0.5
-
-    def _transform_actions(self, actions):
-        return _mirror_y(actions)
 
     def _extra_init(self, state, obs):
         return {"target": torch.flip(obs.base_pos, dims=(1,))}

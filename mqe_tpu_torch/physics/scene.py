@@ -54,12 +54,16 @@ class Terrain:
     origin: torch.Tensor    # (2,) world xy of cell (0, 0)
     scale: float            # meters per cell
     boxes: torch.Tensor     # (E, nbox, 7) per env: center(3) half(3) valid
-    # (E, G, 8) per env: kind, center(3), p0, p1, p2, valid; a box row's p is
-    # its half extents, a cylinder row's (radius, half length, 0)
-    static_geoms: torch.Tensor
+    # a static fixture's geoms per env, split by kind when the env is built:
+    # (E, Gb, 7) boxes as `boxes`, (E, Gc, 6) vertical cylinders: center(3)
+    # radius, half length, valid
+    static_boxes: torch.Tensor
+    static_cyls: torch.Tensor
 
 
-# static geom row kinds
+# row kinds of the env's (E, G, 8) static geom table (kind, center(3), p0,
+# p1, p2, valid; a box row's p is its half extents, a cylinder row's
+# (radius, half length, 0)), the JAX package's layout
 SG_BOX = 0.0
 SG_CYL = 1.0
 
@@ -122,23 +126,21 @@ def _terrain_and_box_force(pos, vel, radius, terrain: Terrain, params, mu_scale,
         f = C.sphere_heightfield(
             pos, vel, radius, terrain.height, terrain.origin, terrain.scale, params, mu
         )
-    boxes = terrain.boxes                                   # (E, nbox, 7)
-    if boxes.shape[1]:
-        fb = C.sphere_box(
-            pos[:, :, None, :], vel[:, :, None, :], radius[None, :, None],
-            boxes[:, None, :, 0:3], boxes[:, None, :, 3:6], params, mu[..., None],
-        )                                                   # (E, S, nbox, 3)
-        f = f + (fb * boxes[:, None, :, 6, None]).sum(dim=2)
-    sg = terrain.static_geoms                               # (E, G, 8)
-    if sg.shape[1]:
-        x, v, r = pos[:, :, None, :], vel[:, :, None, :], radius[None, :, None]
-        center, p = sg[:, None, :, 1:4], sg[:, None, :, 4:7]
-        # both forces on every row, the row's kind choosing, as JAX computes it
-        f_box = C.sphere_box(x, v, r, center, p, params, mu[..., None])
-        f_cyl = C.sphere_vertical_cylinder(x, v, r, center, p[..., 0], p[..., 1], params,
-                                           mu[..., None])
-        fg = torch.where((sg[:, None, :, 0] == SG_CYL)[..., None], f_cyl, f_box)
-        f = f + (fg * sg[:, None, :, 7, None]).sum(dim=2)
+    x, v, r = pos[:, :, None, :], vel[:, :, None, :], radius[None, :, None]
+    # the static geoms after the wall boxes, as JAX sums them; each kind's
+    # force only over its own rows (JAX computes both on every row and picks
+    # one by the row's kind: the same sums where a fixture has one kind, as
+    # every fixture of the repo has)
+    for rows in (terrain.boxes, terrain.static_boxes):      # (E, nbox, 7)
+        if rows.shape[1]:
+            fb = C.sphere_box(x, v, r, rows[:, None, :, 0:3], rows[:, None, :, 3:6], params,
+                              mu[..., None])               # (E, S, nbox, 3)
+            f = f + (fb * rows[:, None, :, 6, None]).sum(dim=2)
+    cyls = terrain.static_cyls                              # (E, Gc, 6)
+    if cyls.shape[1]:
+        fc = C.sphere_vertical_cylinder(x, v, r, cyls[:, None, :, 0:3], cyls[:, None, :, 3],
+                                        cyls[:, None, :, 4], params, mu[..., None])
+        f = f + (fc * cyls[:, None, :, 5, None]).sum(dim=2)
     return f
 
 

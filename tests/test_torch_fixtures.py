@@ -15,9 +15,8 @@ go1revolvingdoor, go1bridge, go1door) against the JAX package.
   the wrestling ring (a static cylinder) and the bridge (static boxes),
   against JAX's (tests/goldens/torch_static_substep.npz); each case shows
   that the static rows push on the robots.
-- The `cuda` cases hold the NPC launches of the cylinder, the revolving door
-  and the door, step kernel and full FK, against their plain versions at
-  B = 4096 on the card.
+  The NPC launches of the cylinder, the revolving door and the door on the
+  card are cases of tests/test_torch_npc.py.
 
 Tolerances: the step's are tests/test_torch_env.py's (TOLS of
 tests/test_soa_episode.py, OTHER_TOLS); the substep's tests/test_pallas_step.py's
@@ -31,10 +30,10 @@ import pytest
 import torch
 
 from mqe_tpu_torch.envs.registry import make_mqe_env as make_torch_env
-from mqe_tpu_torch.physics import fused_step, scene, soa
-from mqe_tpu_torch.physics.model import load_model, load_static_geoms
+from mqe_tpu_torch.physics import scene
+from mqe_tpu_torch.physics.model import load_static_geoms
 from test_torch_env import TOLS as STEP_TOLS
-from test_torch_npc import F_TOL, FK_NAMES, FK_TOL, NAMES, TOLS, _cmp, _fk_args
+from test_torch_npc import F_TOL, NAMES, TOLS, _cmp
 from test_torch_tasks import NUM_ENVS, _compare_step, _record, wrapper_sizes_match
 
 torch.set_num_threads(1)
@@ -77,7 +76,13 @@ def test_wrapper_sizes_and_geometry_match_jax(task):
     assert twrap.env.npc_has_collision == jwrap.env.npc_has_collision == (task not in STATIC)
     sg_j = np.asarray(jwrap.env.static_geoms)
     np.testing.assert_array_equal(twrap.env.static_geoms.numpy(), sg_j)
-    assert twrap.env.terrain.static_geoms is twrap.env.static_geoms
+    # the contact's rows: JAX's table split by kind, in its row order
+    terrain, kind = twrap.env.terrain, sg_j[0, :, 0]
+    np.testing.assert_array_equal(terrain.static_boxes.numpy(), sg_j[:, kind == scene.SG_BOX, 1:8])
+    np.testing.assert_array_equal(terrain.static_cyls.numpy(),
+                                  sg_j[:, kind == scene.SG_CYL][..., [1, 2, 3, 4, 5, 7]])
+    assert (terrain.static_boxes.shape[1], terrain.static_cyls.shape[1]) == {
+        "go1wrestling": (0, 1), "go1bridge": (3, 0)}.get(task, (0, 0))
     if task in STATIC:
         from mqe_tpu.physics.model import load_static_geoms as jax_load
 
@@ -142,43 +147,11 @@ def test_static_substep_matches_jax(static_golden, case, monkeypatch):
     assert "_npc_prim_force" not in seen          # no colliding NPC in these scenes
     (args, force), = seen["_terrain_and_box_force"]
     terrain = args[3]
-    assert terrain.static_geoms.shape[1] == {"wrestling-ring": 1, "bridge": 3}[case]
+    assert (terrain.static_boxes.shape[1], terrain.static_cyls.shape[1]) == {
+        "wrestling-ring": (0, 1), "bridge": (3, 0)}[case]
     # the static rows push on the robots, in both envs
-    no_rows = replace(terrain, static_geoms=terrain.static_geoms[:, :0])
+    no_rows = replace(terrain, static_boxes=terrain.static_boxes[:, :0],
+                      static_cyls=terrain.static_cyls[:, :0])
     bare = scene._terrain_and_box_force(*args[:3], no_rows, *args[4:])
     pushed = (force - bare).norm(dim=-1).amax(dim=1)
     assert bool((pushed > 1.0).all()), pushed
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["cylinder", "rotation_door", "door"])
-def test_hinged_npc_kernels_match_plain_on_card(name):
-    """The NPC launches of a welded hinged model at the slice's B = 4096:
-    full FK, and the step kernel with a reaction wrench and a welded root."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    m = load_model(name, root_free=False)
-    B = 4096
-    args = _fk_args(m, B, device="cuda")
-    fk_before = fused_step.fk_full_kernel.launches
-    for n, a, b in zip(FK_NAMES, soa.fk_full(m, *args), fused_step.fk_full_kernel(m, *args)):
-        diff = float((a - b).abs().max())
-        assert diff <= FK_TOL, f"fk_full {n}: max diff {diff:.3e} > {FK_TOL:.0e}"
-    rng = np.random.RandomState(12)
-    c = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")
-    sx, _ = soa.fk_spheres(m, *args)
-    rest = (c(rng.randn(B, m.nq) * 2.0), c(rng.randn(B, len(m.sph_tags), 3) * 2.0), sx)
-    kw = dict(extra_wrench=c(rng.randn(B, m.nb, 6) * 1.5), root_free=False)
-    step_before = fused_step.step_actor_kernel.launches
-    out = fused_step.step_actor_kernel(m, *args, *rest, **kw)
-    torch.cuda.synchronize()
-    assert fused_step.fk_full_kernel.launches == fk_before + 1
-    assert fused_step.step_actor_kernel.launches == step_before + 1
-    for n, a, b, tol in zip(NAMES, soa.step_actor(m, *args, *rest, **kw), out, TOLS):
-        if a.numel():
-            diff = float((a - b).abs().max())
-            assert diff <= tol, f"step {n}: max diff {diff:.3e} > {tol:.0e}"

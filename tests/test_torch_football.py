@@ -15,8 +15,7 @@ go1football-2vs2) against the JAX package.
 - One `scene.substep_batch` of four robots and the ball, one robot's head in
   it, against JAX's (the "football-ball" case of
   tests/goldens/torch_static_substep.npz).
-- The `cuda` case holds the ball's NPC launches, full FK and step kernel,
-  against their plain versions at B = 4096 on the card.
+  The ball's NPC launches on the card are cases of tests/test_torch_npc.py.
 
 Tolerances: tests/test_torch_env.py's on the step, 1e-5 on commands;
 tests/test_pallas_step.py's and 5e-4 N on the substep.
@@ -28,10 +27,7 @@ import pytest
 import torch
 
 from mqe_tpu_torch.envs.registry import make_mqe_env as make_torch_env
-from mqe_tpu_torch.physics import fused_step, soa
-from mqe_tpu_torch.physics.model import load_model
 from test_torch_fixtures import static_golden, static_substep_matches  # noqa: F401
-from test_torch_npc import FK_NAMES, FK_TOL, NAMES, TOLS, _fk_args
 from test_torch_tasks import NUM_ENVS, _compare_step, _diff, _record, wrapper_sizes_match
 
 torch.set_num_threads(1)
@@ -159,28 +155,3 @@ def test_ball_substep_matches_jax(static_golden, monkeypatch):  # noqa: F811
     # the ball's sphere primitive pushed on a robot, and the robot on the ball, in both envs
     assert bool((f_sph.norm(dim=-1).amax(dim=1) > 1.0).all())
     assert bool((wrench.abs().flatten(1).amax(dim=1) > 1.0).all())
-
-
-@pytest.mark.cuda
-def test_ball_npc_kernels_match_plain_on_card():
-    """The ball's NPC launches at the slice's B = 4096 (free root, nq 0):
-    full FK, and the step kernel with a reaction wrench."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    m = load_model("ball", root_free=True)
-    B = 4096
-    args = _fk_args(m, B, device="cuda")
-    for n, a, b in zip(FK_NAMES, soa.fk_full(m, *args), fused_step.fk_full_kernel(m, *args)):
-        diff = float((a - b).abs().max())
-        assert diff <= FK_TOL, f"fk_full {n}: max diff {diff:.3e} > {FK_TOL:.0e}"
-    rng = np.random.RandomState(12)
-    c = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")
-    sx, _ = soa.fk_spheres(m, *args)
-    rest = (c(rng.randn(B, 0)), c(rng.randn(B, len(m.sph_tags), 3) * 2.0), sx)
-    kw = dict(extra_wrench=c(rng.randn(B, m.nb, 6) * 1.5), root_free=True)
-    out = fused_step.step_actor_kernel(m, *args, *rest, **kw)
-    torch.cuda.synchronize()
-    for n, a, b, tol in zip(NAMES, soa.step_actor(m, *args, *rest, **kw), out, TOLS):
-        if a.numel():
-            diff = float((a - b).abs().max())
-            assert diff <= tol, f"step {n}: max diff {diff:.3e} > {tol:.0e}"

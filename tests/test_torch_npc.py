@@ -24,7 +24,8 @@ and ang vel 1e-5, q 1e-6, qd 1e-4), NPC state held to the agents' bounds;
 5e-4 N on forces of up to 500 N (1e-6 relative), as tests/test_torch_scene.py
 has, and on the reaction wrench.
 
-The `cuda` cases hold the kernels against their plain versions on the card.
+The `cuda` cases hold the kernels against their plain versions on the card,
+at every NPC launch of the tasks (`NPC_LAUNCHES`).
 JAX is imported inside the JAX cases only, so that on the card's machine,
 which has no JAX, `python -m pytest --noconftest tests/test_torch_npc.py -m
 cuda` runs them.
@@ -308,13 +309,30 @@ def test_substep_batch_runs_the_npc_kernels(npc_golden, case, monkeypatch):
 # on the card
 # ---------------------------------------------------------------------------
 
+# every NPC launch of the tasks, as the scene makes it: (model, root_free, B);
+# the sheep's second is go1sheep-hard's 9 sheep in each of 4096 envs
+NPC_LAUNCHES = [
+    pytest.param("box", True, 4096, id="box"),
+    pytest.param("seesaw", False, 4096, id="seesaw"),
+    pytest.param("ball", True, 4096, id="ball"),
+    pytest.param("cylinder", False, 4096, id="cylinder"),
+    pytest.param("rotation_door", False, 4096, id="rotation_door"),
+    pytest.param("door", False, 4096, id="door"),
+    pytest.param("sheep", True, 4096, id="sheep"),
+    pytest.param("sheep", True, 36864, id="sheep-x9"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["box", "seesaw"])
-def test_fk_full_kernel_matches_plain_on_card(name):
+@pytest.mark.parametrize("name,root_free,B", NPC_LAUNCHES)
+def test_npc_launch_kernels_match_plain_on_card(name, root_free, B):
+    """An NPC launch as the scene makes it, each kernel against its plain
+    version: the full FK, and the step kernel with no payload, a reaction
+    wrench, and for a welded model a welded root in both flags."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    m = load_model(name, root_free=name != "seesaw")
-    args = _fk_args(m, 4096, device="cuda")
+    m = load_model(name, root_free=root_free)
+    args = _fk_args(m, B, device="cuda")
     ref = soa.fk_full(m, *args)
     before = fused_step.fk_full_kernel.launches
     out = fused_step.fk_full_kernel(m, *args)
@@ -323,20 +341,8 @@ def test_fk_full_kernel_matches_plain_on_card(name):
     for n, a, b in zip(FK_NAMES, ref, out):
         assert a.shape == b.shape, n
         diff = float((a - b).abs().max())
-        assert diff <= FK_TOL, f"{n}: max diff {diff:.3e} > {FK_TOL:.0e}"
+        assert diff <= FK_TOL, f"fk_full {n}: max diff {diff:.3e} > {FK_TOL:.0e}"
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["box", "seesaw"])
-def test_npc_step_kernel_matches_plain_on_card(name):
-    """The NPC launch of the step kernel as the scene makes it: no payload,
-    a reaction wrench, and for the seesaw a welded root in both flags."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    root_free = name == "box"
-    m = load_model(name, root_free=root_free)
-    B = 4096
-    args = _fk_args(m, B, device="cuda")
     rng = np.random.RandomState(12)
     c = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")
     ns = len(m.sph_tags)
@@ -352,4 +358,4 @@ def test_npc_step_kernel_matches_plain_on_card(name):
         assert a.shape == b.shape, n
         if a.numel():
             diff = float((a - b).abs().max())
-            assert diff <= tol, f"{n}: max diff {diff:.3e} > {tol:.0e}"
+            assert diff <= tol, f"step {n}: max diff {diff:.3e} > {tol:.0e}"

@@ -14,9 +14,8 @@ flock) against the JAX package.
   outputs are contiguous, as the kernels take them.
 - Wrapper sizes and geometry, the grid init included, against the JAX
   wrappers (built, not run); `Draws.normal`.
-- The `cuda` cases hold the sheep's NPC launches, full FK and step kernel,
-  against their plain versions at B = 4096 (one sheep an env) and 36,864
-  (nine) on the card.
+  The sheep's NPC launches on the card (B = 4096, and 36,864 for nine
+  sheep) are cases of tests/test_torch_npc.py.
 
 Tolerances: tests/test_torch_env.py's on the step; the script's outputs at
 the step's bounds of the NPC state (TOLS of tests/test_soa_episode.py).
@@ -26,12 +25,9 @@ import pytest
 import torch
 
 from mqe_tpu_torch.envs.registry import make_mqe_env as make_torch_env
-from mqe_tpu_torch.physics import fused_step, soa
-from mqe_tpu_torch.physics.model import load_model
 from mqe_tpu_torch.physics.scene import ActorState
 from mqe_tpu_torch.utils.random import Draws
 from test_torch_env import TOLS as STEP_TOLS
-from test_torch_npc import FK_NAMES, FK_TOL, NAMES, TOLS, _fk_args
 from test_torch_tasks import (NUM_ENVS, _compare_step, _record, reset_step_matches,
                               wrapper_sizes_match)
 
@@ -131,29 +127,3 @@ def test_draws_normal():
     b = Draws(torch.Generator().manual_seed(5)).normal("x", (4000,), "cpu")
     assert torch.equal(a, b) and a.dtype == torch.float32
     assert abs(float(a.mean())) < 0.1 and abs(float(a.std()) - 1.0) < 0.1
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B", [4096, 36864])
-def test_sheep_npc_kernels_match_plain_on_card(B):
-    """The sheep's NPC launches at the slices' B (go1sheep-easy, and
-    go1sheep-hard's 9 sheep in each of 4096 envs): full FK, and the step
-    kernel with a reaction wrench, free root."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    m = load_model("sheep", root_free=True)
-    args = _fk_args(m, B, device="cuda")
-    for n, a, b in zip(FK_NAMES, soa.fk_full(m, *args), fused_step.fk_full_kernel(m, *args)):
-        diff = float((a - b).abs().max())
-        assert diff <= FK_TOL, f"fk_full {n}: max diff {diff:.3e} > {FK_TOL:.0e}"
-    rng = np.random.RandomState(12)
-    c = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")
-    sx, _ = soa.fk_spheres(m, *args)
-    rest = (c(rng.randn(B, 0)), c(rng.randn(B, len(m.sph_tags), 3) * 2.0), sx)
-    kw = dict(extra_wrench=c(rng.randn(B, m.nb, 6) * 1.5), root_free=True)
-    out = fused_step.step_actor_kernel(m, *args, *rest, **kw)
-    torch.cuda.synchronize()
-    for n, a, b, tol in zip(NAMES, soa.step_actor(m, *args, *rest, **kw), out, TOLS):
-        if a.numel():
-            diff = float((a - b).abs().max())
-            assert diff <= tol, f"step {n}: max diff {diff:.3e} > {tol:.0e}"

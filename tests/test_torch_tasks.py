@@ -147,8 +147,7 @@ def wrapper_sizes_match(task):
     for attr in ("obs_dim", "action_dim", "num_agents", "num_npcs", "has_success", "selfplay",
                  "selfplay_punishment"):
         assert getattr(twrap, attr) == getattr(jwrap, attr), attr
-    assert (getattr(twrap, "controlled_agents", None)
-            == getattr(jwrap, "controlled_agents", None))
+    assert twrap.controlled_agents == getattr(jwrap, "controlled_agents", jwrap.num_agents)
     options = twrap.bt["options"]
     assert twrap._gate_x(*options) == jwrap._gate_x(*options)
     for name in set(options):

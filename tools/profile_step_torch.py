@@ -58,7 +58,7 @@ def main():
                          capture_output=True, text=True).stdout.strip()
     wrap, _ = make_mqe_env(args.task, num_envs=args.num_envs, seed=0, device="cuda")
     ts, _ = wrap.reset()
-    nact = getattr(wrap, "controlled_agents", wrap.num_agents)
+    nact = wrap.controlled_agents
     cmds = torch.as_tensor(np.random.RandomState(1).uniform(
         -1, 1, (args.num_envs, nact, 3)).astype(np.float32), device="cuda")
     for _ in range(2):
