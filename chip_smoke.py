@@ -38,10 +38,25 @@ Phases, each printing one line with its elapsed seconds:
                go1wrestling, go1bridge) launches the step kernel and the
                sphere FK 8 times a step; an NPC task launches the step kernel
                16 times (robots, then NPCs), the sphere FK 8 and the full FK 8.
-Then the kernels' JSON line (`launches`: the sum over the slices' runs, by
-task under `launches_by_task`), the card's name and power limit, and the
-result line `{"ok": true, "device": {...}}`. Any failed phase raises (exit
-code 1); with no CUDA device it exits with code 2 and prints no result.
+  8. train   - task training on the card (learn/): go1gate at SLICE_ENVS
+               envs with PPOConfig's defaults (T = 32, 4 minibatches, 4
+               epochs): `TRAIN_RUNS` (3 updates of the MLP policy's PPO, 1 of
+               the GRU policy's, 1 of MAT), each update's rollout and SGD
+               timed apart (`update` is `_learn(ts, _rollout(ts))`), env-steps
+               a second counted as T*E*A (the JAX package's count) and T*E; a
+               finite loss, params that moved, and every kernel's count set
+               to 0 before an update and read after it: 8*T launches of the
+               step kernel and of the sphere FK, none of the full FK. Then one
+               SGD phase (16 minibatch steps) from a batch drawn with numpy,
+               with the same permutations, on the card and on the CPU (TF32
+               off), params compared at 1e-5; and `learn.evaluate` on the card
+               with the two committed JAX checkpoints of `EVAL_CHECKPOINTS` at
+               4 envs for one episode, mean return and success rate printed.
+Then the kernels' JSON line (`launches`: the sum over the slices' and the
+training updates' runs, by task and "train" under `launches_by_task`), the
+card's name and power limit, and the result line `{"ok": true, "device":
+{...}}`. Any failed phase raises (exit code 1); with no CUDA device it exits
+with code 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -54,9 +69,14 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
 
 from mqe_tpu_torch.envs.registry import ENV_DICT, make_mqe_env  # noqa: E402
+from mqe_tpu_torch.learn import evaluate  # noqa: E402
+from mqe_tpu_torch.learn.mat import MATTrainer  # noqa: E402
+from mqe_tpu_torch.learn.networks import gaussian_logp  # noqa: E402
+from mqe_tpu_torch.learn.ppo import PPOConfig, PPOTrainer  # noqa: E402
 from mqe_tpu_torch.physics import fused_step, soa  # noqa: E402
 from mqe_tpu_torch.physics.model import go1_model, load_model  # noqa: E402
 from mqe_tpu_torch.utils.convert import env_state_to  # noqa: E402
@@ -86,6 +106,16 @@ SLICE_ENVS = 4096
 # drives (8192 for two robots, 12,288 for football-defender's three, 16,384
 # for football-2vs2's four); the first is go1gate's
 ROBOT_B = sorted({SLICE_ENVS * ENV_DICT[t]["config"].env.num_agents for t in SLICES})
+
+# phase train: (label, trainer class, config, updates) on go1gate
+TRAIN_TASK = "go1gate"
+TRAIN_RUNS = (("ppo", PPOTrainer, PPOConfig(), 3),
+              ("gru", PPOTrainer, PPOConfig(recurrent=True), 1),
+              ("mat", MATTrainer, PPOConfig(algo="mat"), 1))
+# the committed JAX TrainStates that phase train evaluates: (task, path, recurrent)
+EVAL_CHECKPOINTS = (("go1bridge", "checkpoints/r5b/go1bridge_ppo_best.npz", False),
+                    ("go1gate", "checkpoints/rec/go1gate_ppo_best.npz", True))
+SGD_TOL = 1e-5  # params after one SGD phase, card vs CPU
 
 T0 = time.perf_counter()
 
@@ -493,6 +523,94 @@ def phase_slice(smi, task, num_envs=SLICE_ENVS, steps=20):
     return launches
 
 
+def train_update(tr, ts, smi, label, u):
+    """One training update, its rollout and SGD timed apart; the kernels'
+    counts set to 0 before it and read after it."""
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    ts, m, rollout_s, sgd_s = tr.timed_update(ts)
+    launches = {name: wrapper.launches for name, wrapper in KERNELS.items()}
+    T, E, A = tr.cfg.rollout_len, tr.E, tr.A
+    substeps = tr.w.env.decimation * tr.w.env.subiters
+    expect = {"fused_step_kernel": substeps * T, "fk_spheres_kernel": substeps * T,
+              "fk_full_kernel": 0}
+    if launches != expect:
+        raise AssertionError(f"train {label} update {u}: launches {launches}, expected {expect}")
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"train {label} update {u}: loss {loss}")
+    upd = rollout_s + sgd_s
+    say("train", f"{label} update {u}: rollout {rollout_s * 1e3:.1f} ms, SGD "
+        f"{sgd_s * 1e3:.1f} ms, update {upd * 1e3:.1f} ms; "
+        f"{T * E * A / upd:.1f} env-steps/s (T*E*A = {T * E * A}), "
+        f"{T * E / upd:.1f} (T*E); loss {loss:.4f}, reward {float(m['reward_mean']):.5f}; "
+        f"launches {launches}; on {smi}")
+    return ts, launches
+
+
+def sgd_card_vs_cpu(tr, smi):
+    """One SGD phase from a batch drawn with numpy, with the same
+    permutations, on the card and on the CPU; params compared."""
+    cfg = tr.cfg
+    n = cfg.rollout_len * tr.E * tr.A
+    rng = np.random.RandomState(11)
+    f32 = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    batch = dict(obs=f32(n, tr.obs_dim), action=f32(n, tr.act_dim), adv=f32(n), ret=f32(n))
+    with torch.no_grad():  # old log-probs near the policy's own: ratios of a PPO batch
+        mean, log_std, _, _ = tr._apply({k: v.cpu() for k, v in tr.init_params.items()},
+                                        torch.as_tensor(batch["obs"]))
+        logp = gaussian_logp(mean, log_std, torch.as_tensor(batch["action"])).numpy()
+    batch["logp"] = logp - 0.3 * f32(n)
+    perms = np.stack([rng.permutation(n) for _ in range(cfg.ppo_epochs)])
+    out, ms = {}, {}
+    for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+        params = {k: v.to(dev) for k, v in tr.init_params.items()}
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[where] = tr._sgd(params, tr.tx.init(params), b, None, {"perm": perms})
+        torch.cuda.synchronize()
+        ms[where] = (time.perf_counter() - t0) * 1e3
+    worst = max(float((out["card"][0][k].cpu() - v).abs().max()) for k, v in out["cpu"][0].items())
+    moved = max(float((out["cpu"][0][k] - v.cpu()).abs().max()) for k, v in tr.init_params.items())
+    say("train", f"SGD phase card vs CPU ({n} rows, {cfg.ppo_epochs * cfg.num_minibatches} "
+        f"minibatch steps): params max diff {worst:.3e} (bound {SGD_TOL:.0e}), moved {moved:.3e}; "
+        f"loss {float(out['card'][2]):.6f} / {float(out['cpu'][2]):.6f}; card {ms['card']:.1f} ms, "
+        f"CPU {ms['cpu']:.1f} ms; on {smi}")
+    if not worst <= SGD_TOL:
+        raise AssertionError(f"SGD card vs CPU: params differ by {worst:.3e} > {SGD_TOL:.0e}")
+
+
+def phase_train(smi):
+    """Training updates on the card, the SGD check and the evaluations.
+    Returns the launches summed over the updates."""
+    wrap, _ = make_mqe_env(TRAIN_TASK, num_envs=SLICE_ENVS, seed=0, device="cuda")
+    total = {name: 0 for name in KERNELS}
+    for label, cls, cfg, n in TRAIN_RUNS:
+        tr = cls(wrap, cfg, seed=0)
+        ts = tr.init_state()
+        for u in range(n):
+            ts, launches = train_update(tr, ts, smi, label, u)
+            for name, c in launches.items():
+                total[name] += c
+        moved = max(float((ts.params[k] - v).abs().max()) for k, v in tr.init_params.items())
+        if not moved > 0:
+            raise AssertionError(f"train {label}: params did not move")
+        if label == "ppo":
+            sgd_card_vs_cpu(tr, smi)
+    for task, path, recurrent in EVAL_CHECKPOINTS:
+        t0 = time.perf_counter()
+        rec = evaluate.main(["--task", task, "--checkpoint", os.path.join(REPO, path),
+                             "--num-envs", "4", "--episodes", "1"]
+                            + (["--recurrent"] if recurrent else []))
+        if not np.isfinite(rec["mean_return"]) or rec["episodes"] < 4:
+            raise AssertionError(f"evaluate {task}: {rec}")
+        say("train", f"evaluate {task} ({path}) on the card, 4 envs, one episode: "
+            f"{rec['episodes']} episodes, mean return {rec['mean_return']}, success rate "
+            f"{rec.get('success_rate')} in {time.perf_counter() - t0:.1f} s; on {smi}")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -522,6 +640,7 @@ def main():
     for task in ENV_DICT:
         phase_check(task)
     by_task = {task: phase_slice(smi, task, steps=steps) for task, steps in SLICES.items()}
+    by_task["train"] = phase_train(smi)
     for entry in entries:
         entry["launches"] = sum(counts[entry["name"]] for counts in by_task.values())
         entry["launches_by_task"] = {t: counts[entry["name"]] for t, counts in by_task.items()}

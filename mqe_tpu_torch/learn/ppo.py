@@ -1,0 +1,443 @@
+"""PPO-family training (ppo / jrpo / dppo) for the task wrappers, PyTorch.
+
+Counterpart of `mqe_tpu/learn/ppo.py` (ref openrl_ws/train.py:10-74,
+cfgs/*.yaml): the same hyperparameter defaults (lr 7e-4, value and advantage
+normalisation) and the same algorithms:
+
+  ppo  - independent PPO with parameters shared across agents
+  jrpo - joint-reward variant: agents optimise the team-mean reward
+  dppo - dual-clip PPO (lower clip c = 3)
+
+An update is the rollout (a Python loop of `rollout_len` wrapper steps), GAE
+(a reverse loop) and `ppo_epochs` epochs of `num_minibatches` minibatch steps,
+all eager torch ops on the wrapper's device; the env's kernels run inside
+every step. The JAX package jits the update as one program, and keeps
+`update_split` (rollout and SGD as two programs) for remote compilers; eager
+PyTorch has no program to split, so train.py accepts `--split` and runs the
+same update.
+
+Params live in the TrainState as a dict {name: tensor} in flax's leaf order,
+applied to the network module with `torch.func.functional_call`. The
+optimizer (`ClipAdam`) is optax's `chain(clip_by_global_norm, adam)` op for
+op. Every random draw is named and goes through `utils.random.Draws` on the
+TrainState's generator: "act_noise" (E, A, act) at each rollout step, the
+env's own draws at each step, "perm" (n,) at each epoch. `update(ts, given)`
+takes precomputed draws by name, each indexed by its rollout step or epoch
+(the tests hand over the JAX package's).
+"""
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from mqe_tpu_torch.learn.networks import (ActorCritic, RecurrentActorCritic, flax_ordered_names,
+                                          gaussian_logp)
+from mqe_tpu_torch.utils.metrics import EpisodeAccumulator
+from mqe_tpu_torch.utils.random import Draws
+
+
+@dataclass(frozen=True)
+class PPOConfig:
+    algo: str = "ppo"              # ppo | jrpo | dppo
+    recurrent: bool = False        # GRU policy (ref ppo.yaml use_recurrent_policy)
+    lr: float = 7e-4
+    rollout_len: int = 32
+    num_minibatches: int = 4
+    ppo_epochs: int = 4
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    dual_clip: float = 3.0
+    vf_coef: float = 0.5
+    ent_coef: float = 0.0
+    max_grad_norm: float = 0.5
+    normalize_adv: bool = True
+    # running return normalisation for the critic (ref ppo.yaml
+    # use_valuenorm: true): the critic regresses normalised returns and its
+    # outputs are denormalised for GAE
+    use_valuenorm: bool = True
+    valuenorm_beta: float = 0.995
+    # command-envelope warmup: open the forward-speed command linearly from
+    # cmd_warmup_floor to 1.0 over the first N updates; 0 = off
+    cmd_warmup_updates: int = 0
+    cmd_warmup_floor: float = 0.3
+
+
+@dataclass
+class AdamState:
+    count: torch.Tensor            # () int32
+    mu: dict
+    nu: dict
+
+
+class ClipAdam:
+    """optax.chain(clip_by_global_norm(max_norm), adam(lr, eps=eps)) op for op:
+    the gradients are scaled by max_norm / |g| only when |g| >= max_norm (no
+    epsilon, unlike `torch.nn.utils.clip_grad_norm_`); eps is added outside
+    the square root; the bias corrections are float32 powers of the count."""
+
+    def __init__(self, lr: float, max_norm: float, b1=0.9, b2=0.999, eps=1e-5):
+        self.lr, self.max_norm, self.b1, self.b2, self.eps = lr, max_norm, b1, b2, eps
+
+    def init(self, params: dict) -> AdamState:
+        dev = next(iter(params.values())).device
+        return AdamState(count=torch.zeros((), dtype=torch.int32, device=dev),
+                         mu={k: torch.zeros_like(v) for k, v in params.items()},
+                         nu={k: torch.zeros_like(v) for k, v in params.items()})
+
+    def step(self, params: dict, grads: dict, state: AdamState):
+        """-> (new params, new state)."""
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        trigger = g_norm < self.max_norm
+        grads = {k: torch.where(trigger, g, (g / g_norm) * self.max_norm) for k, g in grads.items()}
+        b1, b2 = self.b1, self.b2
+        mu = {k: (1 - b1) * g + b1 * state.mu[k] for k, g in grads.items()}
+        nu = {k: (1 - b2) * (g ** 2) + b2 * state.nu[k] for k, g in grads.items()}
+        count = state.count + 1
+        c = count.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=c.device), c)
+        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=c.device), c)
+        new = {k: p + (-self.lr) * ((mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps))
+               for k, p in params.items()}
+        return new, AdamState(count=count, mu=mu, nu=nu)
+
+
+@dataclass
+class TrainState:
+    params: dict                   # name -> tensor, flax leaf order
+    opt_state: AdamState
+    env_state: object              # the wrapper's TaskState
+    generator: torch.Generator     # every draw of the rollout and the epochs
+    update_count: int
+    ret_mean: torch.Tensor         # running return normalisation
+    ret_var: torch.Tensor
+    ep_acc: EpisodeAccumulator     # per-term episode means
+    rnn_h: torch.Tensor | None = None  # (E, A, H) GRU carry when recurrent
+
+
+def _given_at(given, i, names):
+    """The given draws of occurrence i (a rollout step or an epoch)."""
+    return {k: v[i] for k, v in (given or {}).items() if k in names}
+
+
+class PPOTrainer:
+    def __init__(self, wrapper, config: PPOConfig = PPOConfig(), seed: int = 0):
+        self.w = wrapper
+        self.cfg = config
+        self.device = wrapper.device
+        self.E = wrapper.num_envs
+        self.A = wrapper.controlled_agents
+        self.obs_dim = wrapper.obs_dim
+        self.act_dim = wrapper.action_dim
+        self.seed = seed
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.net = self._make_net().to(self.device)
+        own = dict(self.net.named_parameters())
+        self.init_params = {n: own[n].detach() for n in flax_ordered_names(self.net)}
+        self.tx = ClipAdam(config.lr, config.max_grad_norm)
+        self.term_names = self._discover_term_names()
+
+    def _make_net(self):
+        if self.cfg.recurrent:
+            return RecurrentActorCritic(self.obs_dim, self.act_dim)
+        return ActorCritic(self.obs_dim, self.act_dim)
+
+    @torch.no_grad()
+    def _discover_term_names(self):
+        """The wrapper's reward-term names (sorted), from its `_reward` on a
+        reset state: the names are per-task constants, and no env step is
+        taken to find them."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        ts, _ = self.w.reset(Draws(gen))
+        actions = torch.zeros((self.E, self.A, self.act_dim), device=self.device)
+        info = {"reset_mask": torch.zeros((self.E,), dtype=torch.bool, device=self.device)}
+        _, _, terms = self.w._reward(ts.env, self.w.env._observations(ts.env), ts.extra,
+                                     actions, info)
+        return tuple(sorted(terms))
+
+    def init_state(self) -> TrainState:
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        env_state, _ = self.w.reset(Draws(gen))
+        params = dict(self.init_params)
+        return TrainState(
+            params=params, opt_state=self.tx.init(params), env_state=env_state,
+            generator=gen, update_count=0,
+            ret_mean=torch.zeros((), device=self.device),
+            ret_var=torch.ones((), device=self.device),
+            ep_acc=EpisodeAccumulator.create(self.E, self.term_names,
+                                             track_success=self.w.has_success,
+                                             device=self.device),
+            rnn_h=(self.net.initial_state((self.E, self.A), device=self.device)
+                   if self.cfg.recurrent else None),
+        )
+
+    # ------------------------------------------------------------------
+    def _apply(self, params, obs, h=None):
+        args = (obs, h) if self.cfg.recurrent else (obs,)
+        out = functional_call(self.net, params, args)
+        return out if self.cfg.recurrent else (*out, None)
+
+    def _policy(self, params, obs, draws: Draws, h=None):
+        mean, log_std, value, h = self._apply(params, obs, h)
+        noise = draws.normal("act_noise", mean.shape, mean.device)
+        action = mean + torch.exp(log_std) * noise
+        return action, gaussian_logp(mean, log_std, action), value, h
+
+    def _value(self, params, obs, h=None):
+        return self._apply(params, obs, h)[2]
+
+    @torch.no_grad()
+    def _rollout(self, ts: TrainState, given=None):
+        """rollout_len steps -> (env_state, traj, final_value, ep_acc, rnn_h);
+        traj holds (T, E, A, ...) stacks of obs, action, logp, value,
+        reward, done (T, E) and, when recurrent, the pre-step hidden state h."""
+        cfg, A = self.cfg, self.A
+        warm = None
+        if cfg.cmd_warmup_updates > 0:
+            warm = torch.clamp(torch.tensor(ts.update_count, dtype=torch.float32)
+                               / cfg.cmd_warmup_updates, cfg.cmd_warmup_floor, 1.0)
+        env_state, acc, h = ts.env_state, ts.ep_acc, ts.rnn_h
+        obs = self.w.observe(env_state)
+        names = set(given or ()) - {"perm"}
+        keys = ("obs", "action", "logp", "value", "reward", "done") + (("h",) if cfg.recurrent else ())
+        traj = {k: [] for k in keys}
+        for t in range(cfg.rollout_len):
+            draws = Draws(ts.generator, _given_at(given, t, names))
+            action, logp, value, h_next = self._policy(ts.params, obs, draws, h)
+            cmd = self.w.rl_prescale(action)
+            if warm is not None:
+                cmd = torch.cat([cmd[..., :1] * warm.to(cmd.device), cmd[..., 1:]], dim=-1)
+            env_state, next_obs, reward, done, info = self.w.step(env_state, cmd, draws)
+            acc = acc.update(reward[:, :A].mean(-1), done, info.get("reward_terms"),
+                             success=info.get("ep_success"))
+            if cfg.algo == "jrpo":
+                reward = reward.mean(dim=-1, keepdim=True).expand_as(reward)
+            step = dict(obs=obs, action=action, logp=logp, value=value,
+                        reward=reward[:, :A], done=done)
+            if cfg.recurrent:
+                step["h"] = h  # the pre-step state, aligned with obs
+                # episode boundary: new episodes start with a fresh memory
+                h_next = torch.where(done[:, None, None], 0.0, h_next)
+            for k in keys:
+                traj[k].append(step[k])
+            obs, h = next_obs, h_next
+        final_value = self._value(ts.params, obs, h)
+        return env_state, {k: torch.stack(v) for k, v in traj.items()}, final_value, acc, h
+
+    def _gae(self, traj, final_value):
+        cfg = self.cfg
+        gae, next_value = torch.zeros_like(final_value), final_value
+        advs = [None] * traj["reward"].shape[0]
+        for t in reversed(range(len(advs))):
+            notdone = 1.0 - traj["done"][t][:, None].to(torch.float32)
+            delta = traj["reward"][t] + cfg.gamma * next_value * notdone - traj["value"][t]
+            gae = delta + cfg.gamma * cfg.gae_lambda * notdone * gae
+            advs[t], next_value = gae, traj["value"][t]
+        advs = torch.stack(advs)
+        return advs, advs + traj["value"]
+
+    def _loss(self, params, batch):
+        cfg = self.cfg
+        mean, log_std, value, _ = self._apply(params, batch["obs"], batch.get("h"))
+        logp = gaussian_logp(mean, log_std, batch["action"])
+        ratio = torch.exp(logp - batch["logp"])
+        adv = batch["adv"]
+        surr1 = ratio * adv
+        surr2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
+        pg = torch.minimum(surr1, surr2)
+        if cfg.algo == "dppo":
+            # dual clip: bound how negative the objective can get for adv < 0
+            pg = torch.where(adv < 0, torch.maximum(pg, cfg.dual_clip * adv), pg)
+        return self._total(pg, value, log_std, batch)
+
+    def _total(self, pg, value, log_std, batch):
+        cfg = self.cfg
+        pg_loss = -pg.mean()
+        v_loss = 0.5 * ((value - batch["ret"]) ** 2).mean()
+        entropy = (log_std + 0.5 * math.log(2 * math.pi * math.e)).sum()
+        loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
+        return loss, dict(pg_loss=pg_loss, v_loss=v_loss, entropy=entropy)
+
+    def _valuenorm(self, ts, traj, final_value):
+        """The critic predicts normalised returns; denormalise its outputs
+        with the running stats before GAE (ref ppo.yaml use_valuenorm)."""
+        std = torch.sqrt(ts.ret_var + 1e-8)
+        traj = dict(traj)
+        traj["value"] = traj["value"] * std + ts.ret_mean
+        return traj, final_value * std + ts.ret_mean
+
+    def _valuenorm_update(self, ts, returns):
+        """EMA-refresh the return stats (population variance, as jnp.var);
+        returns (mean, var, normaliser)."""
+        b = self.cfg.valuenorm_beta
+        new_mean = b * ts.ret_mean + (1 - b) * returns.mean()
+        new_var = b * ts.ret_var + (1 - b) * returns.var(correction=0)
+        return new_mean, new_var, lambda r: (r - new_mean) / torch.sqrt(new_var + 1e-8)
+
+    @staticmethod
+    def _normalize_adv(advs):
+        """Zero mean, unit population standard deviation (as jnp.std)."""
+        return (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+
+    def _batch(self, traj, advs, ret):
+        """Minibatch rows (T*E*A, ...) of the controlled agents."""
+        A = self.A
+        flat = lambda x: x.reshape((-1,) + tuple(x.shape[3:]))  # noqa: E731
+        batch = dict(obs=flat(traj["obs"][:, :, :A]), action=flat(traj["action"][:, :, :A]),
+                     logp=flat(traj["logp"][:, :, :A]), adv=flat(advs), ret=flat(ret))
+        if self.cfg.recurrent:
+            batch["h"] = flat(traj["h"][:, :, :A])
+        return batch
+
+    def _sgd(self, params, opt_state, batch, generator, given=None):
+        """ppo_epochs epochs of num_minibatches clipped Adam steps, each epoch
+        over a fresh permutation ("perm"). -> (params, opt_state, mean loss)."""
+        cfg = self.cfg
+        n = batch["adv"].shape[0]
+        mb = n // cfg.num_minibatches
+        epoch_losses = []
+        for e in range(cfg.ppo_epochs):
+            perm = Draws(generator, _given_at(given, e, {"perm"})).permutation(
+                "perm", n, batch["adv"].device)
+            losses = []
+            for i in range(cfg.num_minibatches):
+                idx = perm[i * mb:(i + 1) * mb]
+                sub = {k: v[idx] for k, v in batch.items()}
+                leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+                loss, _ = self._loss(leaves, sub)
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+                params, opt_state = self.tx.step(params, dict(zip(leaves, grads)), opt_state)
+                losses.append(loss.detach())
+            epoch_losses.append(torch.stack(losses).mean())
+        return params, opt_state, torch.stack(epoch_losses).mean()
+
+    def _learn(self, ts: TrainState, rollout, given=None):
+        """The update's second half, from a rollout's
+        (env_state, traj, final_value, ep_acc, rnn_h) -> (ts, metrics)."""
+        cfg = self.cfg
+        env_state, traj, final_value, ep_acc, rnn_h = rollout
+        if cfg.use_valuenorm:
+            traj, final_value = self._valuenorm(ts, traj, final_value)
+        advs, returns = self._gae(traj, final_value)
+        if cfg.use_valuenorm:
+            ret_mean, ret_var, norm = self._valuenorm_update(ts, returns)
+            ret_for_loss = norm(returns)
+        else:
+            ret_mean, ret_var, ret_for_loss = ts.ret_mean, ts.ret_var, returns
+        if cfg.normalize_adv:
+            advs = self._normalize_adv(advs)
+        params, opt_state, loss = self._sgd(ts.params, ts.opt_state,
+                                            self._batch(traj, advs, ret_for_loss),
+                                            ts.generator, given)
+        metrics = dict(loss=loss, reward_mean=traj["reward"].mean(),
+                       value_mean=traj["value"].mean(),
+                       done_frac=traj["done"].to(torch.float32).mean())
+        ts = replace(ts, params=params, opt_state=opt_state, env_state=env_state,
+                     update_count=ts.update_count + 1, ep_acc=ep_acc, rnn_h=rnn_h,
+                     ret_mean=ret_mean, ret_var=ret_var)
+        return ts, metrics
+
+    def update(self, ts: TrainState, given=None):
+        """One PPO update -> (ts, metrics of 0-d tensors). `given`: draws by
+        name, each a sequence over rollout steps ("act_noise", the env's) or
+        epochs ("perm")."""
+        return self._learn(ts, self._rollout(ts, given), given)
+
+    def timed_update(self, ts: TrainState):
+        """One update with its rollout and its second half (GAE, SGD) timed
+        apart on the host clock, the device synchronized at both ends of each
+        -> (ts, metrics, rollout seconds, SGD seconds)."""
+        on_card = torch.device(self.device).type == "cuda"
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        rollout = self._rollout(ts)
+        sync()
+        t1 = time.perf_counter()
+        ts, metrics = self._learn(ts, rollout)
+        sync()
+        return ts, metrics, t1 - t0, time.perf_counter() - t1
+
+    def update_many(self, ts: TrainState, n: int):
+        """n updates; the metrics averaged over them."""
+        ms = []
+        for _ in range(n):
+            ts, m = self.update(ts)
+            ms.append(m)
+        return ts, {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+
+    # ---- full checkpoint / resume ----
+    def save_checkpoint(self, ts: TrainState, path: str):
+        from mqe_tpu_torch.utils.checkpoint import save_state
+
+        return save_state(path, ts)
+
+    def restore_checkpoint(self, path: str) -> TrainState:
+        """A TrainState from this package's checkpoint, or params and Adam
+        state from a JAX package TrainState file (its env state is the JAX
+        package's layout and is not read: the env starts from a reset)."""
+        from mqe_tpu_torch.utils.checkpoint import is_port_checkpoint, restore_state
+        from mqe_tpu_torch.utils.convert import params_from_jax_checkpoint
+
+        ts = self.init_state()
+        if is_port_checkpoint(path):
+            return restore_state(path, ts)
+        params, (count, mu, nu) = params_from_jax_checkpoint(path, self.net, with_optimizer=True)
+        return replace(ts, params=params, opt_state=AdamState(count=count, mu=mu, nu=nu))
+
+    def train(self, total_env_steps: int, log_every: int = 10, callback=None,
+              updates_per_call: int = 1,
+              resume_state: TrainState | None = None,
+              checkpoint_path: str | None = None, checkpoint_every: int = 0):
+        ts = resume_state if resume_state is not None else self.init_state()
+        steps_per_update = self.cfg.rollout_len * self.E * self.A
+        n_updates = max(1, total_env_steps // steps_per_update)
+        history = []
+        i = ts.update_count
+        calls = 0
+        while i < n_updates:
+            if updates_per_call > 1:
+                k = min(updates_per_call, n_updates - i)
+                ts, metrics = self.update_many(ts, k)
+                i += k
+            else:
+                ts, metrics = self.update(ts)
+                i += 1
+            calls += 1
+            if checkpoint_every and checkpoint_path and calls % checkpoint_every == 0:
+                self.save_checkpoint(ts, checkpoint_path)
+            if calls % log_every == 0 or i >= n_updates:
+                m = {k_: float(v) for k_, v in metrics.items()}
+                m["update"] = i
+                m["env_steps"] = i * steps_per_update
+                # per-term episode means over the episodes completed this window
+                m.update(ts.ep_acc.summarize())
+                ts = replace(ts, ep_acc=ts.ep_acc.reset_window())
+                # best-by-episode-return snapshot: PPO can collapse after its peak
+                if checkpoint_path and m.get("episodes", 0) > 0 and (
+                        m["mean_episode_return"] > getattr(self, "_best_ret", -np.inf)):
+                    self._best_ret = m["mean_episode_return"]
+                    self.save_checkpoint(ts, checkpoint_path + "_best")
+                # best-by-window-success snapshot: return and success can peak
+                # at different updates
+                if checkpoint_path and m.get("episodes", 0) > 0 and (
+                        m.get("success_rate") is not None
+                        and m["success_rate"] > getattr(self, "_best_succ", -1.0)):
+                    self._best_succ = m["success_rate"]
+                    self.save_checkpoint(ts, checkpoint_path + "_bestsucc")
+                history.append(m)
+                if callback:
+                    callback(m)
+                else:
+                    print(f"update {i}/{n_updates} steps={m['env_steps']} "
+                          f"reward={m['reward_mean']:.4f} loss={m['loss']:.4f} "
+                          f"done_frac={m['done_frac']:.3f}", flush=True)
+        if checkpoint_path:
+            self.save_checkpoint(ts, checkpoint_path)
+        return ts, history

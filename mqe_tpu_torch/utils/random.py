@@ -27,6 +27,15 @@ class Draws:
             return self._given(name, shape, device)
         return torch.randn(tuple(shape), generator=self.generator, device=device)
 
+    def permutation(self, name: str, n: int, device) -> torch.Tensor:
+        """A permutation of range(n) (int64), or the one given under `name`."""
+        if name in self.given:
+            p = torch.as_tensor(self.given[name], dtype=torch.int64, device=device)
+            if tuple(p.shape) != (n,):
+                raise ValueError(f"draw {name!r}: given shape {tuple(p.shape)}, expected ({n},)")
+            return p
+        return torch.randperm(n, generator=self.generator, device=device)
+
     def _given(self, name, shape, device):
         t = torch.as_tensor(self.given[name], dtype=torch.float32, device=device)
         if tuple(t.shape) != tuple(shape):

@@ -1,5 +1,5 @@
 """The port imports no JAX: every module of mqe_tpu_torch imports in a process
-where `jax`, `flax` and `mqe_tpu` cannot be imported, and chip_smoke.py
+where `jax`, `flax`, `optax` and `mqe_tpu` cannot be imported, and chip_smoke.py
 imports none of them either (the machine with the card has no JAX)."""
 import ast
 import os
@@ -14,7 +14,7 @@ import mqe_tpu_torch
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "mqe_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mqe_tpu")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys

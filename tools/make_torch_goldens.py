@@ -46,6 +46,42 @@ go1bridge deck and against its side (static boxes), and four go1football-2vs2
 robots, one with its head in the ball (the ball's sphere primitive). The
 static tasks' scenes have no colliding NPC: their NPC is the welded anchor,
 which the substep passes through.
+
+torch_learn.npz holds the training stack's pieces on fixed inputs
+(tests/test_torch_learn.py), all op by op without jit:
+  - "nets/<net>/...": flax `ActorCritic`, `RecurrentActorCritic` and
+    `MATNetwork` at narrow widths (`NARROW`), initialised from PRNGKey(0):
+    their params ("nets/<net>/params/..."), inputs drawn from
+    RandomState(4) and outputs (the GRU over three steps of carry,
+    "out/<step>/...");
+  - "ckpt/<task>/...": the full-width policy of each of `CHECKPOINTS`, its
+    params read from the JAX package's TrainState `.npz` (the first leaves,
+    in tree order), applied to drawn observations (and a drawn GRU state);
+  - "logp/...", "gae/...": `gaussian_logp`, and `PPOTrainer._valuenorm`,
+    `_gae` (dones mid-trajectory), `_valuenorm_update` and the advantage
+    normalisation on drawn arrays;
+  - "loss/<algo>/...": `_loss` and every gradient leaf
+    (`jax.value_and_grad`) of ppo, dppo and MAT on a drawn batch whose
+    ratios lie on both sides of the clip and, in two rows, past the dual
+    clip;
+  - "optim/...": three steps of the trainers' optax chain
+    (`clip_by_global_norm(0.5)`, `adam(7e-4, eps=1e-5)`) from drawn
+    gradients, the second above the clip norm;
+  - "terms/<task>": each registered task's reward-term names as
+    `PPOTrainer._discover_term_names` finds them (`jax.eval_shape`).
+
+torch_go1gate_ppo_update.npz holds one `PPOTrainer` update of go1gate at
+num_envs=2 (`UPDATE_CFG`: rollout_len 4, num_minibatches 4, ppo_epochs 4),
+its network at `NARROW` widths (the record stays small), started from the
+"in-contact" start state of torch_go1gate_step.npz (read from that file)
+with seed-0 init params ("init/params/..."):
+the action noise of each rollout step ("noise", the `k_act` draws), the
+rollout ("traj/...", "final_value", the end state "out_env/..." and the
+episode sums "ep_acc/..."; one jit of `_rollout`), the permutation of each
+epoch ("perm"), and the params, return statistics and metrics after the
+update ("after/..."; `_update_impl` jitted with `_rollout` returning the
+recorded rollout). "mat/..." holds the same for a `MATTrainer` (seed-0
+init params, its permutations, params after) learning from that rollout.
 """
 import os
 import sys
@@ -290,6 +326,262 @@ def record_npc_substep(cases=tuple(NPC_CASES), table=NPC_CASES) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the training stack (torch_learn.npz, torch_go1gate_ppo_update.npz)
+# ---------------------------------------------------------------------------
+
+# narrow widths of the network tests: obs 7, actions 3
+NARROW = dict(mlp=dict(hidden=(16, 8)), gru=dict(embed=(16,), rnn_size=8, head=(8,)),
+              mat=dict(embed=16))
+# the committed TrainStates the port loads: task -> (path, recurrent)
+CHECKPOINTS = {"go1bridge": ("checkpoints/r5b/go1bridge_ppo_best.npz", False),
+               "go1gate": ("checkpoints/rec/go1gate_ppo_best.npz", True)}
+UPDATE_CFG = dict(rollout_len=4, num_minibatches=4, ppo_epochs=4)
+
+
+def _net(kind, act_dim=3, **kw):
+    from mqe_tpu.learn.mat import MATNetwork
+    from mqe_tpu.learn.networks import ActorCritic, RecurrentActorCritic
+
+    cls = {"mlp": ActorCritic, "gru": RecurrentActorCritic, "mat": MATNetwork}[kind]
+    return cls(action_dim=act_dim, **kw)
+
+
+def _init(net, kind, obs_dim, agents=3):
+    import jax.numpy as jnp
+
+    key = jax.random.PRNGKey(0)
+    if kind == "gru":
+        return net.init(key, jnp.zeros((1, obs_dim)), net.initial_state((1,)))
+    if kind == "mat":
+        return net.init(key, jnp.zeros((1, agents, obs_dim)),
+                        jnp.zeros((1, agents, net.action_dim)))
+    return net.init(key, jnp.zeros((1, obs_dim)))
+
+
+def record_learn() -> dict:
+    from types import SimpleNamespace
+
+    import jax.numpy as jnp
+    import optax
+
+    from mqe_tpu.envs.registry import ENV_DICT, make_mqe_env
+    from mqe_tpu.learn.mat import MATTrainer
+    from mqe_tpu.learn.networks import gaussian_logp
+    from mqe_tpu.learn.ppo import PPOConfig, PPOTrainer
+
+    rng = np.random.RandomState(4)
+    f32 = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    rec = {}
+    with jax.disable_jit():
+        # networks at narrow widths
+        for kind, kw in NARROW.items():
+            net = _net(kind, **kw)
+            params = _init(net, kind, 7)
+            rec.update(_flat(f"nets/{kind}/params", params))
+            if kind == "gru":
+                obs, h = f32(3, 5, 2, 7), f32(5, 2, kw["rnn_size"])
+                rec[f"nets/{kind}/obs"], rec[f"nets/{kind}/h0"] = obs, h
+                for t in range(3):
+                    mean, log_std, value, h = net.apply(params, jnp.asarray(obs[t]), h)
+                    rec.update(_flat(f"nets/{kind}/out/{t}", dict(
+                        mean=mean, log_std=log_std, value=value, h=h)))
+                continue
+            if kind == "mat":
+                obs, prev = f32(5, 3, 7), f32(5, 3, 3)
+                rec[f"nets/{kind}/prev"] = prev
+                out = net.apply(params, jnp.asarray(obs), jnp.asarray(prev))
+            else:
+                obs = f32(5, 2, 7)
+                out = net.apply(params, jnp.asarray(obs))
+            rec[f"nets/{kind}/obs"] = obs
+            rec.update(_flat(f"nets/{kind}/out", dict(zip(("mean", "log_std", "value"), out))))
+
+        # the committed checkpoints at full width
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        for task, (path, recurrent) in CHECKPOINTS.items():
+            kind = "gru" if recurrent else "mlp"
+            with np.load(os.path.join(repo, path)) as data:
+                obs_dim = data["leaf_00009" if recurrent else "leaf_00001"].shape[0]
+                net = _net(kind)
+                leaves, treedef = jax.tree_util.tree_flatten(_init(net, kind, obs_dim))
+                params = jax.tree_util.tree_unflatten(
+                    treedef, [jnp.asarray(data[f"leaf_{i:05d}"]) for i in range(len(leaves))])
+            obs = f32(4, 2, obs_dim)
+            rec[f"ckpt/{task}/obs"] = obs
+            if recurrent:
+                h = 0.5 * f32(4, 2, net.rnn_size)
+                rec[f"ckpt/{task}/h"] = h
+                mean, log_std, value, h_new = net.apply(params, jnp.asarray(obs), jnp.asarray(h))
+                rec[f"ckpt/{task}/h_new"] = np.asarray(h_new)
+            else:
+                mean, log_std, value = net.apply(params, jnp.asarray(obs))
+            rec.update(_flat(f"ckpt/{task}", dict(mean=mean, log_std=log_std, value=value)))
+
+        # gaussian_logp
+        m, ls, a = f32(6, 2, 3), 0.3 * f32(3), f32(6, 2, 3)
+        rec.update({"logp/mean": m, "logp/log_std": ls, "logp/action": a,
+                    "logp/out": np.asarray(gaussian_logp(m, ls, a))})
+
+        # valuenorm, GAE with dones mid-trajectory, advantage normalisation
+        cfg = PPOConfig()
+        view = SimpleNamespace(cfg=cfg)
+        T, E, A = 6, 3, 2
+        traj = dict(reward=f32(T, E, A), value=f32(T, E, A), done=np.zeros((T, E), bool))
+        traj["done"][1, 0] = traj["done"][3, 2] = traj["done"][4, 0] = True
+        final_value = f32(E, A)
+        rec.update(_flat("gae/in", dict(traj=traj, final_value=final_value,
+                                        ret_mean=np.float32(0.7), ret_var=np.float32(2.5))))
+        stats = SimpleNamespace(ret_mean=jnp.float32(0.7), ret_var=jnp.float32(2.5))
+        vtraj, vfinal = PPOTrainer._valuenorm(view, stats, jax.tree.map(jnp.asarray, traj),
+                                              jnp.asarray(final_value))
+        advs, returns = PPOTrainer._gae(view, vtraj, vfinal)
+        new_mean, new_var, norm = PPOTrainer._valuenorm_update(view, stats, returns)
+        rec.update(_flat("gae/out", dict(
+            value=vtraj["value"], final_value=vfinal, advs=advs, returns=returns,
+            ret_mean=new_mean, ret_var=new_var, ret_norm=norm(returns),
+            adv_norm=(advs - advs.mean()) / (advs.std() + 1e-8))))
+
+        # _loss and its gradients: ppo, dppo, MAT
+        for algo in ("ppo", "dppo", "mat"):
+            kind = "mat" if algo == "mat" else "mlp"
+            net = _net(kind, **NARROW[kind])
+            params = _init(net, kind, 7)
+            if kind == "mat":
+                batch = dict(obs=f32(6, 3, 7), action=f32(6, 3, 3))
+                prev = MATTrainer._shift_actions(jnp.asarray(batch["action"]))
+                mean, log_std, _ = net.apply(params, jnp.asarray(batch["obs"]), prev)
+                shape = (6, 3)
+            else:
+                batch = dict(obs=f32(12, 7), action=f32(12, 3))
+                mean, log_std, _ = net.apply(params, jnp.asarray(batch["obs"]))
+                shape = (12,)
+            # old log-probs off the current ones: ratios exp(off) on both sides
+            # of the clip, and in the first two rows 3.67 with a negative
+            # advantage, past the dual clip (ratios of a PPO batch: within
+            # [0.3, 4], so that float32 rounding stays at its usual scale)
+            logp = np.asarray(gaussian_logp(mean, log_std, jnp.asarray(batch["action"])))
+            off, adv = 0.4 * f32(*shape), f32(*shape)
+            off.reshape(-1)[:2] = 1.3
+            adv.reshape(-1)[:2] = -np.abs(adv.reshape(-1)[:2]) - 0.1
+            batch.update(logp=(logp - off).astype(np.float32), adv=adv, ret=f32(*shape))
+            cls = MATTrainer if kind == "mat" else PPOTrainer
+            view = SimpleNamespace(cfg=PPOConfig(algo=algo), net=net,
+                                   _shift_actions=MATTrainer._shift_actions)
+            jb = jax.tree.map(jnp.asarray, batch)
+            (loss, aux), grads = jax.value_and_grad(
+                lambda p: cls._loss(view, p, jb), has_aux=True)(params)
+            rec.update(_flat(f"loss/{algo}/params", params))
+            rec.update(_flat(f"loss/{algo}/batch", batch))
+            rec.update(_flat(f"loss/{algo}/out", dict(loss=loss, **aux)))
+            rec.update(_flat(f"loss/{algo}/grads", grads))
+
+        # three optimizer steps of clip + Adam, the second above the clip norm
+        params = _init(_net("mlp", **NARROW["mlp"]), "mlp", 7)
+        tx = optax.chain(optax.clip_by_global_norm(cfg.max_grad_norm),
+                         optax.adam(cfg.lr, eps=1e-5))
+        opt_state = tx.init(params)
+        rec.update(_flat("optim/params/0", params))
+        for i, scale in enumerate((0.01, 1.0, 0.003)):
+            g = jax.tree.map(lambda p: jnp.asarray(scale * f32(*p.shape)), params)
+            rec[f"optim/gnorm/{i}"] = np.asarray(optax.global_norm(g))
+            rec.update(_flat(f"optim/grads/{i}", g))
+            upd, opt_state = tx.update(g, opt_state, params)
+            params = optax.apply_updates(params, upd)
+            rec.update(_flat(f"optim/params/{i + 1}", params))
+
+    # reward-term names of every task
+    for task in ENV_DICT:
+        wrap, _ = make_mqe_env(task, num_envs=NUM_ENVS, seed=0)
+        names = PPOTrainer(wrap, PPOConfig(), seed=0).term_names  # go1plane's: none
+        rec[f"terms/{task}"] = np.array(names, dtype=str)
+    return rec
+
+
+def _start_state(wrap):
+    """The go1gate "in-contact" start of torch_go1gate_step.npz as a JAX
+    TaskState: the record's arrays put into a reset state's tree by path."""
+    import jax.numpy as jnp
+
+    template, _ = wrap.reset(jax.random.PRNGKey(0))
+    prefix = "in-contact/start"
+    with np.load(os.path.join(GOLDENS, "torch_go1gate_step.npz")) as f:
+        start = {k: f[k] for k in f.files if k.startswith(prefix + "/")}
+    paths = list(_flat(prefix, template))
+    assert sorted(paths) == sorted(start), "the step record does not hold a whole state"
+    treedef = jax.tree_util.tree_structure(template)
+    return jax.tree_util.tree_unflatten(treedef, [jnp.asarray(start[p]) for p in paths])
+
+
+def _narrow(trainer, kind):
+    """The trainer with its network at the narrow widths of `NARROW`, its
+    init params drawn as its constructor draws them (the first of
+    jax.random.split(PRNGKey(seed)))."""
+    trainer.net = _net(kind, trainer.act_dim, **NARROW[kind])
+    key = jax.random.split(jax.random.PRNGKey(0))[0]
+    import jax.numpy as jnp
+
+    if kind == "mat":
+        args = (jnp.zeros((1, trainer.A, trainer.obs_dim)), jnp.zeros((1, trainer.A, trainer.act_dim)))
+    else:
+        args = (jnp.zeros((1, trainer.obs_dim)),)
+    trainer.init_params = trainer.net.init(key, *args)
+    return trainer
+
+
+def record_ppo_update() -> dict:
+    from mqe_tpu.envs.registry import make_mqe_env
+    from mqe_tpu.learn.mat import MATTrainer
+    from mqe_tpu.learn.ppo import PPOConfig, PPOTrainer
+
+    wrap, _ = make_mqe_env("go1gate", num_envs=NUM_ENVS, seed=0)
+    tr = _narrow(PPOTrainer(wrap, PPOConfig(**UPDATE_CFG), seed=0), "mlp")
+    ts = tr.init_state().replace(env_state=_start_state(wrap))
+    T, E, A = tr.cfg.rollout_len, tr.E, tr.A
+    rec = _flat("init/params", ts.params)
+    # the draws of _rollout and of the epochs, split from the state's key as
+    # PPOTrainer splits them
+    key, noise = ts.key, []
+    for _ in range(T):
+        key, k_act, _ = jax.random.split(key, 3)
+        noise.append(np.asarray(jax.random.normal(k_act, (E, A, tr.act_dim))))
+    rec["noise"] = np.stack(noise)
+
+    def perms(key, n):
+        out = []
+        for _ in range(tr.cfg.ppo_epochs):
+            key, kperm = jax.random.split(key)
+            out.append(np.asarray(jax.random.permutation(kperm, n)))
+        return np.stack(out)
+
+    rollout = jax.jit(tr._rollout)(ts)
+    env_state, rkey, traj, final_value, ep_acc, _ = rollout
+    assert np.array_equal(np.asarray(rkey), np.asarray(key)), "the rollout's key chain"
+    rec.update(_flat("traj", traj))
+    rec["final_value"] = np.asarray(final_value)
+    rec.update(_flat("out_env", env_state))
+    rec.update(_flat("ep_acc", ep_acc))
+    rec["perm"] = perms(rkey, T * E * A)
+    tr._rollout = lambda _ts: rollout  # the update learns from the recorded rollout
+    after, metrics = jax.jit(tr._update_impl)(ts)
+    rec.update(_flat("after/params", after.params))
+    rec.update(_flat("after/metrics", metrics))
+    rec["after/ret_mean"], rec["after/ret_var"] = np.asarray(after.ret_mean), np.asarray(after.ret_var)
+
+    mtr = _narrow(MATTrainer(wrap, PPOConfig(algo="mat", **UPDATE_CFG), seed=0), "mat")
+    mts = mtr.init_state()
+    rec.update(_flat("mat/init/params", mts.params))
+    rec["mat/perm"] = perms(rkey, T * E)
+    mtr._rollout = lambda _ts: rollout
+    mafter, mmetrics = jax.jit(mtr._update_impl)(mts)
+    rec.update(_flat("mat/after/params", mafter.params))
+    rec.update(_flat("mat/after/metrics", mmetrics))
+    rec["mat/after/ret_mean"] = np.asarray(mafter.ret_mean)
+    rec["mat/after/ret_var"] = np.asarray(mafter.ret_var)
+    rec["done"] = np.asarray(traj["done"])
+    return rec
+
+
 FILES = {
     "torch_go1gate_step.npz": partial(record, "go1gate", ("post-reset", "in-contact")),
     "torch_go1gate_reset_step.npz": partial(record, "go1gate", ("reset-step",)),
@@ -317,6 +609,8 @@ FILES = {
     "torch_go1sheep-hard_step.npz": partial(record, "go1sheep-hard",
                                             ("post-reset", "in-contact", "reset-step")),
     "torch_static_substep.npz": partial(record_npc_substep, tuple(STATIC_CASES), STATIC_CASES),
+    "torch_learn.npz": record_learn,
+    "torch_go1gate_ppo_update.npz": record_ppo_update,
 }
 
 
