@@ -10,9 +10,10 @@ Phases, each printing one line with its elapsed seconds:
   3. kernel  - the CUDA substep kernel against its plain PyTorch version
                (physics/soa.py::step_actor) on the card at the tolerances of
                tests/test_pallas_step.py: go1 at each B of the robots'
-               launches of the slices (`ROBOT_B`: 8192, 12,288, 16,384) and
-               at 37, two small NPC cases, and every NPC launch of the
-               slices at its shape
+               launches of the slices (`ROBOT_B`: 4096 for locomotion
+               training's one robot, 8192, 12,288, 16,384) and at 37, two
+               small NPC cases, and every NPC launch of the slices at its
+               shape
                (`NPC_LAUNCHES`: box, seesaw, ball, cylinder, revolving door,
                door at B = 4096, the sheep at 4096 and 36,864); then its
                device time per launch at each of those shapes
@@ -52,8 +53,23 @@ Phases, each printing one line with its elapsed seconds:
                off), params compared at 1e-5; and `learn.evaluate` on the card
                with the two committed JAX checkpoints of `EVAL_CHECKPOINTS` at
                4 envs for one episode, mean return and success rate printed.
+  9. locomotion - locomotion training and the `policy` backend: one step
+               card vs CPU with the same draws, at `CHECK_TOLS`, of
+               LocomotionEnv (residual, action lag on) and of go1plane with
+               the `policy` backend, with the body policy of
+               assets/body_policy.npz and with the walk-these-ways stack
+               (assets without that file, a body MLP drawn from a seed);
+               `LOCO_UPDATES` PPO updates of train_locomotion's
+               configuration at LOCO_ENVS envs (T = 32), each update's
+               rollout and SGD timed apart and its launches asserted (8*T of
+               the step kernel and of the sphere FK, none of the full FK);
+               then `learn.train_locomotion.main` for one update into a
+               temporary directory, its npz read back with
+               `load_body_policy` and compared with the trained actor; and a
+               few GymAdapter / SingleAgentAdapter steps on go1gate.
 Then the kernels' JSON line (`launches`: the sum over the slices' and the
-training updates' runs, by task and "train" under `launches_by_task`), the
+training updates' runs, by task, "train" and "locomotion" under
+`launches_by_task`), the
 card's name and power limit, and the result line `{"ok": true, "device":
 {...}}`. Any failed phase raises (exit code 1); with no CUDA device it exits
 with code 2 and prints no result.
@@ -62,8 +78,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,14 +90,21 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+import mqe_tpu_torch  # noqa: E402
+from mqe_tpu_torch.control.nets import load_body_policy  # noqa: E402
+from mqe_tpu_torch.envs import tasks as T  # noqa: E402
+from mqe_tpu_torch.envs import wrappers as W  # noqa: E402
+from mqe_tpu_torch.envs.go1_env import Go1Env  # noqa: E402
+from mqe_tpu_torch.envs.gym_adapter import GymAdapter, SingleAgentAdapter  # noqa: E402
 from mqe_tpu_torch.envs.registry import ENV_DICT, make_mqe_env  # noqa: E402
-from mqe_tpu_torch.learn import evaluate  # noqa: E402
+from mqe_tpu_torch.learn import evaluate, train_locomotion  # noqa: E402
+from mqe_tpu_torch.learn.locomotion_env import LocomotionEnv  # noqa: E402
 from mqe_tpu_torch.learn.mat import MATTrainer  # noqa: E402
 from mqe_tpu_torch.learn.networks import gaussian_logp  # noqa: E402
 from mqe_tpu_torch.learn.ppo import PPOConfig, PPOTrainer  # noqa: E402
 from mqe_tpu_torch.physics import fused_step, soa  # noqa: E402
 from mqe_tpu_torch.physics.model import go1_model, load_model  # noqa: E402
-from mqe_tpu_torch.utils.convert import env_state_to  # noqa: E402
+from mqe_tpu_torch.utils.convert import env_state_to, wtw_body_from_numpy  # noqa: E402
 from mqe_tpu_torch.utils.opcount import count_ops  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
@@ -91,6 +116,9 @@ PEAK_F32_PER_S = 67e12
 NAMES = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")
 TOLS = (1e-6, 1e-6, 1e-5, 1e-5, 1e-6, 1e-4)
 FK_TOL = 1e-6  # tests/test_torch_soa.py::test_fk_matches_jax
+# a control step card vs CPU: the per-step bounds of tests/test_soa_episode.py
+# between two paths
+CHECK_TOLS = dict(pos=1e-6, quat=1e-5, lin_vel=3e-4, ang_vel=5e-3, q=2e-4, qd=2e-2)
 
 KERNELS = {"fused_step_kernel": fused_step.step_actor_kernel,
            "fk_spheres_kernel": fused_step.fk_spheres_kernel,
@@ -102,10 +130,16 @@ SLICES = {"go1gate": 20, "go1pushbox": 20, "go1seesaw": 20, "go1football-2vs2": 
           "go1football-1vs1": 5, "go1tug": 5, "go1revolvingdoor": 5, "go1bridge": 5,
           "go1door": 5, "go1sheep-easy": 5}
 SLICE_ENVS = 4096
+# phase locomotion: LocomotionEnv's envs (one robot each) and its updates
+LOCO_ENVS = 4096
+LOCO_UPDATES = 2
 # the robots' launches of the slices: B = envs x robots of each task SLICES
 # drives (8192 for two robots, 12,288 for football-defender's three, 16,384
-# for football-2vs2's four); the first is go1gate's
-ROBOT_B = sorted({SLICE_ENVS * ENV_DICT[t]["config"].env.num_agents for t in SLICES})
+# for football-2vs2's four) and locomotion training's 4096; the JSON entries
+# carry go1gate's (GATE_B), "robots" the others
+GATE_B = SLICE_ENVS * ENV_DICT["go1gate"]["config"].env.num_agents
+ROBOT_B = sorted({SLICE_ENVS * ENV_DICT[t]["config"].env.num_agents for t in SLICES}
+                 | {LOCO_ENVS})
 
 # phase train: (label, trainer class, config, updates) on go1gate
 TRAIN_TASK = "go1gate"
@@ -337,8 +371,8 @@ def phase_kernel(smi):
     entry = dict(
         name="fused_step_kernel", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
         replaces="mqe_tpu/physics/pallas_step.py:141", max_abs_err=max_err, library_ms=None,
-        **robot_timing(ROBOT_B[0]))
-    entry["robots"] = {str(B): robot_timing(B) for B in ROBOT_B[1:]}
+        **robot_timing(GATE_B))
+    entry["robots"] = {str(B): robot_timing(B) for B in ROBOT_B if B != GATE_B}
     entry["npc"] = {}
     for name, (m, a, w) in npc_cases.items():
         rf = m.root_free
@@ -395,8 +429,8 @@ def phase_fk(smi):
     entry = dict(
         name="fk_spheres_kernel", route="cuda", source="mqe_tpu_torch/csrc/fused_step.cu",
         replaces="mqe_tpu/physics/soa.py:546", max_abs_err=max_err, library_ms=None,
-        **robot_timing(ROBOT_B[0], floor=lambda: fused_step.launch_fk(go1, *one, *one_out)))
-    entry["robots"] = {str(B): robot_timing(B) for B in ROBOT_B[1:]}
+        **robot_timing(GATE_B, floor=lambda: fused_step.launch_fk(go1, *one, *one_out)))
+    entry["robots"] = {str(B): robot_timing(B) for B in ROBOT_B if B != GATE_B}
     return entry
 
 
@@ -439,46 +473,58 @@ def phase_fk_full(smi):
     )
 
 
-def phase_check(task):
-    """One step at 2 envs: kernels on the card vs plain on the CPU, with the
-    same draws (the reset state, the sheep script's noise)."""
-    wrap_c, _ = make_mqe_env(task, num_envs=2, seed=0, device="cuda")
-    wrap_h, _ = make_mqe_env(task, num_envs=2, seed=0, device="cpu")
-    ts_c, _ = wrap_c.reset()
+def compare_step(label, wrap_c, wrap_h, ts_c, acts, given, terms=False):
+    """One step of the state `ts_c` on the card (kernels) and of its copy on
+    the CPU (plain versions) with the same actions and draws (`given`: numpy
+    arrays and the "fresh" state on the card), compared at CHECK_TOLS, obs
+    and reward (and with `terms` every reward term) at 1e-4, commands at
+    1e-5. The step must end no episode. `wrap_c`/`wrap_h` are task wrappers
+    or LocomotionEnvs."""
     ts_h = env_state_to(ts_c, "cpu")
-    rng = np.random.RandomState(5)
-    acts = rng.uniform(-1, 1, (2, wrap_c.controlled_agents, 3)).astype(np.float32)
-    noise = torch.as_tensor(rng.randn(2, wrap_c.num_npcs, 3).astype(np.float32))
-    fresh = wrap_c.env.fresh_state()  # the reset state, should an env reset
+    on = lambda d, dev: {k: (env_state_to(v, dev) if k == "fresh"  # noqa: E731
+                             else torch.as_tensor(v, device=dev)) for k, v in d.items()}
     out_c = wrap_c.step(ts_c, torch.as_tensor(acts, device="cuda"),
-                        draws=wrap_c.env.draws({"fresh": fresh, "npc_noise": noise.cuda()}))
-    out_h = wrap_h.step(ts_h, torch.as_tensor(acts),
-                        draws=wrap_h.env.draws({"fresh": env_state_to(fresh, "cpu"),
-                                                "npc_noise": noise}))
+                        wrap_c.env.draws(on(given, "cuda")))
+    out_h = wrap_h.step(ts_h, torch.as_tensor(acts), wrap_h.env.draws(on(given, "cpu")))
+    if bool(out_h[3].any()):
+        raise AssertionError(f"check {label}: an env reset in the check step; the comparison "
+                             "needs none")
     worst = {}
     for who in ("agents", "npcs"):
         for n in NAMES:
             a = getattr(getattr(out_c[0].env.phys, who), n).cpu()
             b = getattr(getattr(out_h[0].env.phys, who), n)
             worst[f"{who}.{n}"] = float((a - b).abs().max()) if a.numel() else 0.0
-    obs_d = float((out_c[1].cpu() - out_h[1]).abs().max())
-    rew_d = float((out_c[2].cpu() - out_h[2]).abs().max())
-    if bool(out_h[3].any()):
-        raise AssertionError("an env reset in the check step; the comparison needs none")
-    # the per-step bounds of tests/test_soa_episode.py between two paths
-    tols = dict(pos=1e-6, quat=1e-5, lin_vel=3e-4, ang_vel=5e-3, q=2e-4, qd=2e-2)
     for n, v in worst.items():
-        tol = tols[n.split(".")[1]]
+        tol = CHECK_TOLS[n.split(".")[1]]
         if not v <= tol:
-            raise AssertionError(f"check {task} {n}: card vs CPU {v:.3e} > {tol:.0e}")
-    if not (obs_d <= 1e-4 and rew_d <= 1e-4):
-        raise AssertionError(f"check {task} obs {obs_d:.3e} / reward {rew_d:.3e} > 1e-4")
-    cmd_d = float((out_c[0].env.commands.cpu() - out_h[0].env.commands).abs().max())
-    if not cmd_d <= 1e-5:
-        raise AssertionError(f"check {task} commands: card vs CPU {cmd_d:.3e} > 1e-5")
-    say("check", f"{task} 2 envs, card vs CPU after one step: "
-        + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
-        + f", obs {obs_d:.3e}, reward {rew_d:.3e}, commands {cmd_d:.3e}")
+            raise AssertionError(f"check {label} {n}: card vs CPU {v:.3e} > {tol:.0e}")
+    other = {"obs": (out_c[1], out_h[1]), "reward": (out_c[2], out_h[2])}
+    for k, v in (out_h[4]["reward_terms"].items() if terms else ()):
+        other[f"term {k}"] = (out_c[4]["reward_terms"][k], v)
+    for n, (a, b) in other.items():
+        worst[n] = float((a.cpu() - b).abs().max())
+        if not worst[n] <= 1e-4:
+            raise AssertionError(f"check {label} {n}: card vs CPU {worst[n]:.3e} > 1e-4")
+    cmd = lambda ts: ts.commands if hasattr(ts, "cmd_scale") else ts.env.commands  # noqa: E731
+    worst["commands"] = float((cmd(out_c[0]).cpu() - cmd(out_h[0])).abs().max())
+    if not worst["commands"] <= 1e-5:
+        raise AssertionError(f"check {label} commands: card vs CPU {worst['commands']:.3e} > 1e-5")
+    say("check", f"{label}, card vs CPU after one step: "
+        + ", ".join(f"{n} {v:.3e}" for n, v in worst.items()))
+
+
+def phase_check(task):
+    """One step at 2 envs: kernels on the card vs plain on the CPU, with the
+    same draws (the reset state, the sheep script's noise)."""
+    wrap_c, _ = make_mqe_env(task, num_envs=2, seed=0, device="cuda")
+    wrap_h, _ = make_mqe_env(task, num_envs=2, seed=0, device="cpu")
+    ts_c, _ = wrap_c.reset()
+    rng = np.random.RandomState(5)
+    acts = rng.uniform(-1, 1, (2, wrap_c.controlled_agents, 3)).astype(np.float32)
+    given = {"fresh": wrap_c.env.fresh_state(),  # the reset state, should an env reset
+             "npc_noise": rng.randn(2, wrap_c.num_npcs, 3).astype(np.float32)}
+    compare_step(f"{task} 2 envs", wrap_c, wrap_h, ts_c, acts, given)
 
 
 def phase_slice(smi, task, num_envs=SLICE_ENVS, steps=20):
@@ -611,6 +657,145 @@ def phase_train(smi):
     return total
 
 
+def wtw_params(seed=5):
+    """A walk-these-ways body MLP's params in the JAX package's `mlp_apply`
+    layout, drawn from RandomState(seed) (as tools/make_torch_goldens.py
+    draws them: the reference's weights are not in the repo)."""
+    sizes = (2100 + 2, 512, 256, 128, 12)
+    rng = np.random.RandomState(seed)
+    ws = [(rng.randn(a, b) / np.sqrt(a)).astype(np.float32) for a, b in zip(sizes[:-1], sizes[1:])]
+    bs = [(0.1 * rng.randn(b)).astype(np.float32) for b in sizes[1:]]
+    return {"w": ws, "b": bs, "act": "elu"}
+
+
+def policy_cfg():
+    class Cfg(T.Go1PlaneCfg):
+        class control(T.Go1PlaneCfg.control):
+            locomotion_backend = "policy"
+
+    return Cfg
+
+
+def loco_checks():
+    """One step card vs CPU of LocomotionEnv (residual, lag on) and of
+    go1plane's `policy` backend with the body-policy npz and with the
+    walk-these-ways stack."""
+    E = 4
+    rng = np.random.RandomState(5)
+    env_c = LocomotionEnv(num_envs=E, seed=0, device="cuda")
+    env_h = LocomotionEnv(num_envs=E, seed=0, device="cpu")
+    ts_c, _ = env_c.reset()
+    acts = np.asarray(np.tanh(rng.randn(E, 1, 12)), dtype=np.float32)  # rl_prescale, residual
+    given = {"fresh": env_c.env.fresh_state(),
+             "cmd_vx": rng.uniform(-1, 1, E), "cmd_vy": rng.uniform(-0.6, 0.6, E),
+             "cmd_wz": rng.uniform(-1, 1, E)}
+    compare_step(f"LocomotionEnv {E} envs (residual, lag {env_c.env.lag_len})",
+                 env_c, env_h, ts_c, acts, given, terms=True)
+
+    acts = rng.uniform(-1, 1, (2, 1, 3)).astype(np.float32)
+    wraps = [W.EmptyWrapper(Go1Env(policy_cfg(), num_envs=2, seed=0, device=d))
+             for d in ("cuda", "cpu")]
+    ts_c, _ = wraps[0].reset()
+    compare_step("go1plane policy backend (assets/body_policy.npz)", *wraps, ts_c, acts,
+                 {"fresh": wraps[0].env.fresh_state()})
+    # the walk-these-ways stack: the assets without body_policy.npz
+    old = mqe_tpu_torch.ASSETS_DIR
+    tmp = tempfile.mkdtemp()
+    try:
+        for f in os.listdir(old):
+            if f != "body_policy.npz":
+                shutil.copy(os.path.join(old, f), tmp)
+        mqe_tpu_torch.ASSETS_DIR = tmp
+        wraps = [W.EmptyWrapper(Go1Env(policy_cfg(), num_envs=2, seed=0, device=d))
+                 for d in ("cuda", "cpu")]
+    finally:
+        mqe_tpu_torch.ASSETS_DIR = old
+        shutil.rmtree(tmp)
+    for w in wraps:
+        if w.env.hist_len != 30:
+            raise AssertionError(f"the WTW stack's history: hist_len {w.env.hist_len}")
+        w.env.load_locomotion_policy(wtw_body_from_numpy(wtw_params(), device=w.device))
+    ts_c, _ = wraps[0].reset()
+    compare_step("go1plane policy backend (walk-these-ways stack, 30-step history)", *wraps,
+                 ts_c, acts, {"fresh": wraps[0].env.fresh_state()})
+
+
+def adapter_steps(smi, num_envs=64, steps=3):
+    """A few GymAdapter and SingleAgentAdapter steps on go1gate on the card."""
+    wrap, _ = make_mqe_env("go1gate", num_envs=num_envs, seed=0, device="cuda")
+    A, D = wrap.controlled_agents, wrap.obs_dim
+    rng = np.random.RandomState(2)
+    for cls, shape in ((GymAdapter, (num_envs, A)), (SingleAgentAdapter, (num_envs * A, 1))):
+        ad = cls(wrap, seed=1)
+        obs = ad.reset()
+        for _ in range(steps):
+            obs, rew, done, info = ad.step(rng.uniform(-1, 1, shape + (3,)))
+        ok = (obs.shape == shape + (D,) and rew.shape == shape == done.shape
+              and isinstance(obs, np.ndarray) and np.isfinite(obs).all() and np.isfinite(rew).all())
+        if not ok:
+            raise AssertionError(f"{cls.__name__}: obs {obs.shape}, rew {rew.shape}, "
+                                 f"done {done.shape}, expected {shape}")
+        say("locomotion", f"{cls.__name__} on go1gate, {num_envs} envs, {steps} steps: obs "
+            f"{obs.shape}, reward {rew.shape} (mean {rew.mean():.5f}), done {done.shape}, "
+            f"{len(info['reward_terms'])} reward terms; on {smi}")
+
+
+def phase_locomotion(smi):
+    """Locomotion training and the `policy` backend on the card. Returns the
+    launches summed over the training updates and the CLI's update."""
+    loco_checks()
+    env = LocomotionEnv(num_envs=LOCO_ENVS, seed=0, device="cuda")
+    cfg = PPOConfig(lr=3e-4, rollout_len=32, ent_coef=1e-3)  # train_locomotion's
+    tr = PPOTrainer(env, cfg, seed=0)
+    ts = tr.init_state()
+    total = {name: 0 for name in KERNELS}
+    for u in range(LOCO_UPDATES):
+        ts, launches = train_update(tr, ts, smi, "locomotion", u)
+        for name, c in launches.items():
+            total[name] += c
+    moved = max(float((ts.params[k] - v).abs().max()) for k, v in tr.init_params.items())
+    if not moved > 0:
+        raise AssertionError("locomotion: params did not move")
+    with tempfile.TemporaryDirectory() as d:
+        # the trained params through the CLI's npz writer and load_body_policy
+        path = os.path.join(d, "body_policy.npz")
+        np.savez(path, **train_locomotion.policy_npz(tr.net, ts.params, env.prescale))
+        obs = torch.as_tensor(np.random.RandomState(4).randn(64, 70).astype(np.float32),
+                              device="cuda")
+        with torch.no_grad():
+            want = env.prescale * torch.tanh(tr._apply(ts.params, obs)[0])
+            err = float((load_body_policy(path, device="cuda")(obs) - want).abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"locomotion: body policy npz read back differs by {err:.3e}")
+        # the entry point: one update of train_locomotion's own run
+        for wrapper in KERNELS.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        out = train_locomotion.main(["--num-envs", str(LOCO_ENVS), "--rollout-len",
+                                     str(cfg.rollout_len), "--train-timesteps",
+                                     str(cfg.rollout_len * LOCO_ENVS), "--out",
+                                     os.path.join(d, "cli.npz")])
+        cli_s = time.perf_counter() - t0
+        launches = {name: wrapper.launches for name, wrapper in KERNELS.items()}
+        substeps = env.env.decimation * env.env.subiters
+        expect = {"fused_step_kernel": substeps * cfg.rollout_len,
+                  "fk_spheres_kernel": substeps * cfg.rollout_len, "fk_full_kernel": 0}
+        if launches != expect:
+            raise AssertionError(f"train_locomotion: launches {launches}, expected {expect}")
+        cli_policy = load_body_policy(out, device="cuda")
+        with torch.no_grad():
+            act = cli_policy(obs)
+        if tuple(act.shape) != (64, 12) or not bool(torch.isfinite(act).all()):
+            raise AssertionError(f"train_locomotion's npz: actions {tuple(act.shape)}")
+        for name, c in launches.items():
+            total[name] += c
+    say("locomotion", f"body policy npz read back: actions within {err:.3e} of the trained "
+        f"actor (bound 1e-5); train_locomotion.main, {LOCO_ENVS} envs, one update: "
+        f"{cli_s:.2f} s with the env's build and reset, launches {launches}; on {smi}")
+    adapter_steps(smi)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -641,6 +826,7 @@ def main():
         phase_check(task)
     by_task = {task: phase_slice(smi, task, steps=steps) for task, steps in SLICES.items()}
     by_task["train"] = phase_train(smi)
+    by_task["locomotion"] = phase_locomotion(smi)
     for entry in entries:
         entry["launches"] = sum(counts[entry["name"]] for counts in by_task.values())
         entry["launches_by_task"] = {t: counts[entry["name"]] for t, counts in by_task.items()}

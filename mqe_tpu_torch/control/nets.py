@@ -4,9 +4,14 @@ PyTorch counterpart of `mqe_tpu/control/nets.py`:
 
   actuator net:  per-joint MLP 6 -> 32 -> 32 -> 1, softsign activations
                  (ref go1.py:367-382; weights mqe_tpu/assets/actuator_go1.npz)
-  body policy:   obs70 -> 512 -> 256 -> 128 -> 12, ELU, then prescale * tanh
-                 (trained residual of the trot controller;
+  body policy:   obs70 -> 256 -> 128 -> 64 -> 12, ELU, then prescale * tanh
+                 (trained by learn/train_locomotion.py;
                  mqe_tpu/assets/body_policy.npz)
+  adaptation:    2100 -> 256 -> 128 -> 2, ELU (the walk-these-ways
+                 adaptation module; mqe_tpu/assets/adaptation_wtw.npz)
+  WTW body:      (2100 + 2) -> 512 -> 256 -> 128 -> 12, ELU; the reference's
+                 blob is missing from its snapshot, so its weights come from
+                 the caller (utils/convert.py::wtw_body_from_numpy)
 
 Weights are read in place from the JAX package's asset files with numpy.
 """
@@ -75,6 +80,35 @@ class ActuatorNet(nn.Module):
         """All inputs (..., 12). Returns torques (..., 12)."""
         x = torch.stack([err, err_last, err_last_last, vel, vel_last, vel_last_last], dim=-1)
         return self.mlp(x)[..., 0]
+
+
+class AdaptationModule(nn.Module):
+    """The walk-these-ways adaptation module: obs history (..., 2100) ->
+    latent (..., 2). With no `mlp` it loads the committed weights onto
+    `device`."""
+
+    def __init__(self, mlp: MLP | None = None, device="cuda"):
+        super().__init__()
+        if mlp is None:
+            from mqe_tpu_torch.utils.convert import mlp_from_numpy
+
+            mlp = mlp_from_numpy(_npz("adaptation_wtw.npz"), device=device)
+        self.mlp = mlp
+
+    def forward(self, obs_history):
+        return self.mlp(obs_history)
+
+
+class WalkTheseWaysBody(nn.Module):
+    """The walk-these-ways body MLP: (history || latent) (..., 2102) ->
+    action (..., 12), no squash (the JAX package's `mlp_apply` of it)."""
+
+    def __init__(self, mlp: MLP):
+        super().__init__()
+        self.mlp = mlp
+
+    def forward(self, x):
+        return self.mlp(x)
 
 
 class BodyPolicy(nn.Module):

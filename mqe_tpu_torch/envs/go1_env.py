@@ -3,9 +3,9 @@
 Counterpart of `mqe_tpu/envs/go1_env.py` for every task of the registry:
 passive NPCs (box, seesaw, ball, hinged doors and discs), static fixtures
 (the wrestling ring, the bridge), the scripted football defender and the
-sheep's flee script. Cameras, the `policy` locomotion backend and the
-terrain curriculum are not ported yet (`_unsupported`). One control step
-runs the command -> locomotion (trot controller + learned residual) ->
+sheep's flee script. Cameras and the terrain curriculum are not ported yet
+(`_unsupported`). One control step runs the command -> locomotion (trot
+controller + learned residual, or the `policy` backend's body policy) ->
 actuator net -> torque chain, `decimation` x `subiters` physics substeps, the
 NPC script, termination, a masked auto-reset (`torch.where`, no indexed
 writes) and the observations. The JAX package's two `lax.scan`s are Python
@@ -24,9 +24,11 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from mqe_tpu_torch import ASSETS_DIR, default_device
+import mqe_tpu_torch
+from mqe_tpu_torch import default_device
 from mqe_tpu_torch.control.locomotion import CLOCK_TO_LEG, TrotController, step_gait_clocks
-from mqe_tpu_torch.control.nets import ActuatorNet, load_body_policy
+from mqe_tpu_torch.control.nets import (ActuatorNet, AdaptationModule, WalkTheseWaysBody,
+                                        load_body_policy)
 from mqe_tpu_torch.envs.config import class_to_dict, default_joint_array
 from mqe_tpu_torch.ops import quat as quat_ops
 from mqe_tpu_torch.physics import contact as C
@@ -62,7 +64,7 @@ class EnvState:
     gait_indices: torch.Tensor      # (E, A)
     clock_inputs: torch.Tensor      # (E, A, 4)
     loco_obs: torch.Tensor          # (E, A, 70)
-    loco_hist: torch.Tensor         # (E, A, 0): no observation history is kept
+    loco_hist: torch.Tensor         # (E, A, 70 * hist_len): the last hist_len obs70, oldest first
     last_loco_action: torch.Tensor  # (E, A, 12)
     last2_loco_action: torch.Tensor
     err_hist: torch.Tensor          # (E, A, 4, 12) actuator history
@@ -84,9 +86,6 @@ def _unsupported(cfg):
     oc = cfg.obs.cfgs
     if getattr(oc, "depth_image", False) or getattr(oc, "rgb_image", False):
         out.append("onboard cameras (ROADMAP Queue A item 14)")
-    if cfg.control.locomotion_backend not in ("trot", "residual"):
-        out.append(f"the {cfg.control.locomotion_backend!r} locomotion backend "
-                   "(ROADMAP Queue A item 12)")
     return out
 
 
@@ -207,7 +206,9 @@ class Go1Env:
             ),
             flat_height=flat_height,
         )
+        # sphere masks for termination / penalty classification
         self.term_sph = self.robot.sphere_mask(cfg.asset.terminate_after_contacts_on)
+        self.pen_sph = self.robot.sphere_mask(cfg.asset.penalize_contacts_on)
 
         # ---- control backends ----
         self.actuator = ActuatorNet(device=dev)
@@ -218,13 +219,19 @@ class Go1Env:
             hip_scale_reduction=cfg.control.hip_scale_reduction,
             default_q=self.default_q_np,
         )
-        # the residual backend adds the trained body policy to the trot
-        # controller when its weights are there
-        bp = os.path.join(ASSETS_DIR, "body_policy.npz")
-        self.body_policy = (
-            load_body_policy(bp, device=dev)
-            if self.backend == "residual" and os.path.exists(bp) else None
-        )
+        # the body policy: the trained obs70 policy of assets/body_policy.npz
+        # when it is there (residual: added to the trot controller; policy:
+        # the whole action), else None (the trot controller) until
+        # `load_locomotion_policy`. The `policy` backend without that file
+        # keeps the walk-these-ways history for the adaptation module.
+        self.adaptation = AdaptationModule(device=dev) if self.backend == "policy" else None
+        self.body_policy = None
+        self.hist_len = 30 if self.backend == "policy" else 0
+        if self.backend in ("policy", "residual"):
+            bp = os.path.join(mqe_tpu_torch.ASSETS_DIR, "body_policy.npz")
+            if os.path.exists(bp):
+                self.body_policy = load_body_policy(bp, device=dev)
+                self.hist_len = 0  # the obs70 policy needs no history
 
         dc = cfg.control.default_command
         gait_phase = np.asarray(cfg.command.gaits[dc.gait], dtype=np.float32)
@@ -387,7 +394,7 @@ class Go1Env:
             gait_indices=z(E, A),
             clock_inputs=z(E, A, 4),
             loco_obs=z(E, A, 70),
-            loco_hist=z(E, A, 0),
+            loco_hist=z(E, A, 70 * self.hist_len),
             last_loco_action=z(E, A, 12),
             last2_loco_action=z(E, A, 12),
             err_hist=z(E, A, 4, 12),
@@ -414,18 +421,29 @@ class Go1Env:
     # ------------------------------------------------------------------
     # stepping
     # ------------------------------------------------------------------
-    def _locomotion_action(self, state: EnvState, commands):
-        """commands (E, A, 3) -> locomotion action (E, A, 12) + new clocks."""
+    def _locomotion_action(self, state: EnvState, commands, gait_override=None):
+        """commands (E, A, 3) -> locomotion action (E, A, 12) + new clocks.
+
+        gait_override: optional dict of per-env gait params ("phases",
+        "offsets", "bounds", optionally "freq") as (E,) or (E, 1) tensors,
+        for multi-gait locomotion training (learn/locomotion_env.py)."""
         cfg = self.cfg
         gp = self.gait_params_static
         E, A, dev = self.num_envs, self.num_agents, self.device
 
         def bc(v):
+            if isinstance(v, torch.Tensor):
+                return (v[:, None] if v.ndim == 1 else v).expand(E, A)
             return torch.full((E, A), float(v), device=dev)
 
-        phases, offsets, bounds = bc(gp["phases"]), bc(gp["offsets"]), bc(gp["bounds"])
+        def g(name):
+            if gait_override is not None and name in gait_override:
+                return bc(gait_override[name])
+            return bc(gp[name])
+
+        phases, offsets, bounds = g("phases"), g("offsets"), g("bounds")
         gait_idx, idx, clock, _, _ = step_gait_clocks(
-            state.gait_indices, self.dt, bc(gp["freq"]), phases, offsets, bounds,
+            state.gait_indices, self.dt, g("freq"), phases, offsets, bounds,
             bc(gp["duration"]),
         )
         idx_legs = idx[..., torch.as_tensor(CLOCK_TO_LEG, device=dev)]
@@ -436,38 +454,53 @@ class Go1Env:
         v_yaw = quat_ops.quat_rotate_inverse(yawq, ag.lin_vel)
 
         gait_arr = {k: bc(gp[k]) for k in (
-            "freq", "duration", "swing_height", "stance_width", "stance_length",
-            "body_height_delta")}
-        loco_obs = self._fill_locomotion_obs(state, commands, clock)
-        # velocity-error integrator (anti-windup clamped)
-        verr = torch.stack(
-            [
-                commands[..., 0] - v_yaw[..., 0],
-                commands[..., 1] - v_yaw[..., 1],
-                commands[..., 2] - ag.ang_vel[..., 2],
-            ],
-            dim=-1,
-        )
-        cl = self.trot.INT_CLAMP
-        vel_int = torch.clamp(state.vel_int + self.dt * verr, -cl, cl)
-        z_meas = (
-            ag.pos[..., 2] - self.scene.flat_height
-            if self.scene.flat_height is not None else None
-        )
-        action = self.trot(
-            commands, idx_legs, gait_arr, roll=r, pitch=p,
-            v_meas=v_yaw[..., :2], w_meas=ag.ang_vel[..., 2],
-            v_int=vel_int, z_meas=z_meas,
-        )
-        if self.body_policy is not None:
-            # trained residual: model-based trot + learned correction
-            action = action + self.body_policy(loco_obs)
+            "duration", "swing_height", "stance_width", "stance_length", "body_height_delta")}
+        gait_arr["freq"] = g("freq")
+        loco_obs, loco_hist = self._fill_locomotion_obs(
+            state, commands, clock,
+            gait_pob=(phases, offsets, bounds) if gait_override else None)
+        vel_int = state.vel_int
+        if self.backend in ("trot", "residual") or self.body_policy is None:
+            # velocity-error integrator (anti-windup clamped)
+            verr = torch.stack(
+                [
+                    commands[..., 0] - v_yaw[..., 0],
+                    commands[..., 1] - v_yaw[..., 1],
+                    commands[..., 2] - ag.ang_vel[..., 2],
+                ],
+                dim=-1,
+            )
+            cl = self.trot.INT_CLAMP
+            vel_int = torch.clamp(state.vel_int + self.dt * verr, -cl, cl)
+            z_meas = (
+                ag.pos[..., 2] - self.scene.flat_height
+                if self.scene.flat_height is not None else None
+            )
+            action = self.trot(
+                commands, idx_legs, gait_arr, roll=r, pitch=p,
+                v_meas=v_yaw[..., :2], w_meas=ag.ang_vel[..., 2],
+                v_int=vel_int, z_meas=z_meas,
+            )
+            if self.backend == "residual" and self.body_policy is not None:
+                # trained residual: model-based trot + learned correction
+                action = action + self.body_policy(loco_obs)
+        elif isinstance(self.body_policy, WalkTheseWaysBody):
+            # the walk-these-ways stack: adaptation(hist) -> latent,
+            # body(hist || latent) -> action (ref go1.py:400-407)
+            latent = self.adaptation(loco_hist)
+            action = self.body_policy(torch.cat([loco_hist, latent], dim=-1))
+        else:
+            # the trained obs70 body policy
+            action = self.body_policy(loco_obs)
         clip_a = cfg.normalization.clip_actions
         action = torch.clamp(action, -clip_a, clip_a)
-        return action, gait_idx, clock, loco_obs, state.loco_hist, vel_int
+        return action, gait_idx, clock, loco_obs, loco_hist, vel_int
 
-    def _fill_locomotion_obs(self, state: EnvState, commands, clock):
-        """The 70-dim walk-these-ways obs (layout per ref go1.py:64-108, 411-479)."""
+    def _fill_locomotion_obs(self, state: EnvState, commands, clock, gait_pob=None):
+        """The 70-dim walk-these-ways obs (layout per ref go1.py:64-108,
+        411-479) and the history rolled by it. gait_pob: optional (phases,
+        offsets, bounds) (E, A) tensors in place of the config gait in obs
+        dims 8-10 (multi-gait training)."""
         cfg = self.cfg
         sc = cfg.control.obs_scales
         dc = cfg.control.default_command
@@ -475,7 +508,6 @@ class Go1Env:
         E, A = self.num_envs, self.num_agents
         down = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand(ag.quat.shape[:-1] + (3,))
         g_body = quat_ops.quat_rotate_inverse(ag.quat, down)
-        gait = cfg.command.gaits[dc.gait]
         o = torch.zeros((E, A, 70), device=self.device)
         o[..., 0:3] = g_body
         o[..., 3] = commands[..., 0] * sc.lin_vel
@@ -483,9 +515,13 @@ class Go1Env:
         o[..., 5] = commands[..., 2] * sc.ang_vel
         o[..., 6] = dc.body_height * sc.body_height
         o[..., 7] = dc.gait_freq * sc.gait_freq
-        o[..., 8] = gait[0] * sc.gait_phase
-        o[..., 9] = gait[1] * sc.gait_phase
-        o[..., 10] = gait[2] * sc.gait_phase
+        if gait_pob is not None:
+            for i, v in enumerate(gait_pob):
+                o[..., 8 + i] = v * sc.gait_phase
+        else:
+            gait = cfg.command.gaits[dc.gait]
+            for i in range(3):
+                o[..., 8 + i] = gait[i] * sc.gait_phase
         o[..., 11] = 0.5 * sc.gait_phase
         o[..., 12] = dc.footswing_height * sc.footswing_height
         o[..., 13] = dc.body_pitch * sc.body_pitch
@@ -498,7 +534,10 @@ class Go1Env:
         o[..., 42:54] = state.last_loco_action
         o[..., 54:66] = state.last2_loco_action
         o[..., 66:70] = clock
-        return o
+        hist = state.loco_hist
+        if self.hist_len > 0:
+            hist = torch.cat([hist[..., 70:], o], dim=-1)
+        return o, hist
 
     def _torques(self, state: EnvState, action):
         """Locomotion action -> joint torques via the actuator net
@@ -516,8 +555,11 @@ class Go1Env:
         vel = ag.qd
         h = state.err_hist  # (E, A, 4, 12): err_last, err_llast, vel_last, vel_llast
         tau = self.actuator(err, h[..., 0, :], h[..., 1, :], vel, h[..., 2, :], h[..., 3, :])
-        # the trot controller's supplementary joint PD (both ported backends)
-        tau = tau - self.trot.TAU_KP * err - self.trot.TAU_KD * vel
+        # the trot controller's supplementary joint PD: for the trot and
+        # residual backends, and for `policy` only when asked for
+        if self.backend in ("trot", "residual") or getattr(
+                self.cfg.control, "policy_pd_augment", False):
+            tau = tau - self.trot.TAU_KP * err - self.trot.TAU_KD * vel
         tau = tau * state.dr.motor_strength
         tau = torch.maximum(torch.minimum(tau, self.torque_limits), -self.torque_limits)
         new_hist = torch.stack([err, h[..., 0, :], vel, h[..., 2, :]], dim=-2)
@@ -730,6 +772,12 @@ class Go1Env:
     def reset(self, draws: Draws | None = None):
         state = self._reset_all(draws or self.draws())
         return state, self._observations(state)
+
+    def load_locomotion_policy(self, policy):
+        """Install a body policy: an obs70 -> action12 module (the trained
+        `BodyPolicy`), or a `WalkTheseWaysBody`, which the `policy` backend
+        runs behind the adaptation module over the 30-step history."""
+        self.body_policy = policy
 
     @torch.no_grad()
     def step(self, state: EnvState, commands, draws: Draws | None = None):

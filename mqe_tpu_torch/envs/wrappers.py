@@ -125,6 +125,18 @@ class TaskWrapper:
         dev = obs.env_info["gate_deviation"]
         return torch.stack([dev[:, 0] + x_offset, dev[:, 1]], dim=-1)
 
+    @torch.no_grad()
+    def reward_term_names(self):
+        """The names of the reward terms a step reports, from `_reward` on a
+        reset state (no env step is taken)."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        ts, _ = self.reset(Draws(gen))
+        actions = torch.zeros((self.num_envs, self.controlled_agents, self.action_dim),
+                              device=self.device)
+        info = {"reset_mask": torch.zeros((self.num_envs,), dtype=torch.bool, device=self.device)}
+        _, _, terms = self._reward(ts.env, self.env._observations(ts.env), ts.extra, actions, info)
+        return tuple(terms)
+
     # ---- public API ----
     @torch.no_grad()
     def reset(self, draws: Draws | None = None):

@@ -166,3 +166,14 @@ def from_flax_leaf(net: nn.Module, name: str, leaf):
     elif path[-1] == "bias":
         t = t.reshape(-1)
     return t.contiguous()
+
+
+def to_flax_leaf(net: nn.Module, name: str, t: torch.Tensor) -> np.ndarray:
+    """The parameter `name` as its flax leaf, for the MLP networks: a Dense
+    kernel as (in, out); every other leaf as it is."""
+    a = t.detach().cpu().numpy()
+    if flax_path(net, name)[-1] == "kernel":
+        if a.ndim != 2:
+            raise ValueError(f"{name}: only 2-D Dense kernels are written, got {a.shape}")
+        a = a.T
+    return np.ascontiguousarray(a)

@@ -141,25 +141,13 @@ class PPOTrainer:
         own = dict(self.net.named_parameters())
         self.init_params = {n: own[n].detach() for n in flax_ordered_names(self.net)}
         self.tx = ClipAdam(config.lr, config.max_grad_norm)
-        self.term_names = self._discover_term_names()
+        # the env's reward-term names: per-task constants, found without a step
+        self.term_names = tuple(sorted(self.w.reward_term_names()))
 
     def _make_net(self):
         if self.cfg.recurrent:
             return RecurrentActorCritic(self.obs_dim, self.act_dim)
         return ActorCritic(self.obs_dim, self.act_dim)
-
-    @torch.no_grad()
-    def _discover_term_names(self):
-        """The wrapper's reward-term names (sorted), from its `_reward` on a
-        reset state: the names are per-task constants, and no env step is
-        taken to find them."""
-        gen = torch.Generator(device=self.device).manual_seed(0)
-        ts, _ = self.w.reset(Draws(gen))
-        actions = torch.zeros((self.E, self.A, self.act_dim), device=self.device)
-        info = {"reset_mask": torch.zeros((self.E,), dtype=torch.bool, device=self.device)}
-        _, _, terms = self.w._reward(ts.env, self.w.env._observations(ts.env), ts.extra,
-                                     actions, info)
-        return tuple(sorted(terms))
 
     def init_state(self) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)

@@ -2,11 +2,13 @@
 
 `mlp_from_numpy` builds the port's MLP from a parameter dict in the layout of
 the npz assets; `env_state_from_numpy` builds the port's state dataclasses
-from a JAX `EnvState` or `TaskState` whose leaves were turned into numpy
-arrays (`jax.tree.map(np.asarray, state)`, done by the caller). Attributes
-are read by name, so this module needs no JAX. The training networks come
-across from flax params (`actor_critic_from_numpy`, `mat_from_numpy`) or
-from the JAX package's TrainState files (`params_from_jax_checkpoint`).
+from a JAX `EnvState`, `TaskState` or `LocoTaskState` whose leaves were
+turned into numpy arrays (`jax.tree.map(np.asarray, state)`, done by the
+caller). Attributes are read by name, so this module needs no JAX. The
+training networks come across from flax params (`actor_critic_from_numpy`,
+`mat_from_numpy`) or from the JAX package's TrainState files
+(`params_from_jax_checkpoint`); the walk-these-ways body MLP from the JAX
+package's `mlp_apply` params (`wtw_body_from_numpy`).
 """
 from __future__ import annotations
 
@@ -37,12 +39,24 @@ def mlp_from_numpy(params, device="cuda") -> MLP:
     return mlp.to(device)
 
 
+def wtw_body_from_numpy(params, device="cuda"):
+    """`WalkTheseWaysBody` on `device` from the JAX package's `mlp_apply`
+    params: {"w": [(in, out) kernels], "b": [biases], "act": name}."""
+    from mqe_tpu_torch.control.nets import WalkTheseWaysBody
+
+    flat = {"activation": str(params["act"])}
+    for i, (w, b) in enumerate(zip(params["w"], params["b"])):
+        flat[f"w{i}"], flat[f"b{i}"] = np.asarray(w).T, np.asarray(b)
+    return WalkTheseWaysBody(mlp_from_numpy(flat, device=device))
+
+
 def _tensor(x, device):
     return torch.as_tensor(np.array(x), device=device)
 
 
 def env_state_from_numpy(tree, device="cuda"):
-    """Port EnvState / TaskState on `device` from a JAX one with numpy leaves."""
+    """Port EnvState / TaskState / LocoTaskState on `device` from a JAX one
+    with numpy leaves."""
     from mqe_tpu_torch.envs.go1_env import EnvState
     from mqe_tpu_torch.envs.wrappers import TaskState
     from mqe_tpu_torch.physics.scene import ActorState, DomainRand, PhysState
@@ -63,6 +77,13 @@ def env_state_from_numpy(tree, device="cuda"):
                 kw[name] = _tensor(getattr(s, name), device)
         return EnvState(**kw)
 
+    if hasattr(tree, "cmd_scale"):  # a LocomotionEnv state
+        from mqe_tpu_torch.learn.locomotion_env import LocoTaskState
+
+        return LocoTaskState(env=env(tree.env), extra={
+            k: _tensor(v, device) for k, v in tree.extra.items()}, **{
+            k: _tensor(getattr(tree, k), device)
+            for k in LocoTaskState.__dataclass_fields__ if k not in ("env", "extra")})
     if hasattr(tree, "env"):  # a TaskState; an empty `extra` may have left no trace
         return TaskState(env=env(tree.env), extra={
             k: _tensor(v, device) for k, v in getattr(tree, "extra", {}).items()})

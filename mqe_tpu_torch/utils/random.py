@@ -27,6 +27,17 @@ class Draws:
             return self._given(name, shape, device)
         return torch.randn(tuple(shape), generator=self.generator, device=device)
 
+    def integers(self, name: str, shape, lo: int, hi: int, device) -> torch.Tensor:
+        """Integers uniform in [lo, hi) of `shape` (int64), or the value given
+        under `name`."""
+        if name in self.given:
+            t = torch.as_tensor(self.given[name], dtype=torch.int64, device=device)
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"draw {name!r}: given shape {tuple(t.shape)}, "
+                                 f"expected {tuple(shape)}")
+            return t
+        return torch.randint(lo, hi, tuple(shape), generator=self.generator, device=device)
+
     def permutation(self, name: str, n: int, device) -> torch.Tensor:
         """A permutation of range(n) (int64), or the one given under `name`."""
         if name in self.given:

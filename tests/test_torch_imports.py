@@ -46,6 +46,9 @@ def test_port_modules_import_without_jax():
     n = int(out.stdout.strip().splitlines()[-1])
     expected = [m.name for m in pkgutil.walk_packages(mqe_tpu_torch.__path__, "mqe_tpu_torch.")]
     assert n == len(expected) >= 20
+    # the modules of the locomotion slice among them
+    assert {"mqe_tpu_torch.learn.locomotion_env", "mqe_tpu_torch.learn.train_locomotion",
+            "mqe_tpu_torch.envs.gym_adapter", "mqe_tpu_torch.scripts.demo"} <= set(expected)
 
 
 def _imported_roots(path):

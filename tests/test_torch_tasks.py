@@ -12,7 +12,8 @@ and the masked reset, against recorded JAX steps; the base wrapper's parts.
   (tests/goldens/torch_go1gate_reset_step.npz, and the "reset-step" case of
   torch_go1pushbox_step.npz).
 - The base wrapper's geometry helpers, sizes, hooks and observation against
-  the JAX package's wrappers, what the port still refuses, and that its
+  the JAX package's wrappers, what the port still refuses (cameras; the
+  `policy` backend is held in tests/test_torch_policy.py), and that its
   registry has the JAX package's task names.
 
 tests/test_torch_football.py, tests/test_torch_fixtures.py and
@@ -56,11 +57,14 @@ def _diff(name, a, b, tol):
     return d
 
 
-def _compare_step(rec, case, task, draws=None, selfplay=False):
+def _compare_step(rec, case, task, draws=None, selfplay=False, wrap=None):
     """Step the port from the recorded start; compare with the recorded step.
     The sheep script's recorded draw goes in under "npc_noise"; `selfplay`
-    turns the wrapper's flag on. Returns (port outputs, JAX's step)."""
-    wrap, _ = make_torch_env(task, num_envs=NUM_ENVS, seed=0, device="cpu")
+    turns the wrapper's flag on; `wrap`, where given, is the port's wrapper
+    to step (else the task's at NUM_ENVS envs). Returns (port outputs, JAX's
+    step)."""
+    if wrap is None:
+        wrap, _ = make_torch_env(task, num_envs=NUM_ENVS, seed=0, device="cpu")
     wrap.selfplay = selfplay
     ts_t = env_state_from_numpy(_tree(rec, f"{case}/start"), device="cpu")
     given = dict(draws or {})
@@ -219,15 +223,9 @@ class _Camera(T.Go1GateCfg):
             depth_image = True
 
 
-class _Policy(T.Go1GateCfg):
-    class control(T.Go1GateCfg.control):
-        locomotion_backend = "policy"
-
-
 @pytest.mark.parametrize("cfg,item", [
     (_Camera, "cameras (ROADMAP Queue A item 14)"),
-    (_Policy, "backend (ROADMAP Queue A item 12)"),
-], ids=["camera", "policy-backend"])
+], ids=["camera"])
 def test_what_the_port_refuses_names_its_roadmap_item(cfg, item):
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
         Go1Env(cfg, num_envs=NUM_ENVS, device="cpu")

@@ -1,7 +1,7 @@
 """Record the JAX side of the port's step tests (tests/test_torch_env.py,
-tests/test_torch_tasks.py, tests/test_torch_npc.py): control steps and NPC
-substeps of the JAX package, which the port's CPU tests replay without
-running JAX.
+tests/test_torch_tasks.py, tests/test_torch_npc.py, and the others named
+below): control steps and NPC substeps of the JAX package, which the port's
+CPU tests replay without running JAX.
 
     JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [FILE ...]
 
@@ -82,6 +82,24 @@ epoch ("perm"), and the params, return statistics and metrics after the
 update ("after/..."; `_update_impl` jitted with `_rollout` returning the
 recorded rollout). "mat/..." holds the same for a `MATTrainer` (seed-0
 init params, its permutations, params after) learning from that rollout.
+
+The locomotion slice (tests/test_torch_loco_env.py, test_torch_policy.py):
+  - torch_locomotion_step.npz: LocomotionEnv at 4 envs (`record_locomotion`,
+    the cases of `LOCO_CASES`): its reset with the draws it made, and one
+    step with its draws by the names the port takes them under
+    ("cmd_vx", "cmd_vy", "cmd_wz", "cmd_switch", "gait_switch",
+    "gait_other") and its fresh state;
+  - torch_locomotion_ppo_update.npz: one PPOTrainer update of LocomotionEnv
+    at 2 envs with each step's action noise and command draws
+    (`record_loco_ppo_update`);
+  - torch_policy_step.npz: go1plane with the `policy` backend
+    (`record_policy_backend`); for the walk-these-ways stack
+    `mqe_tpu.ASSETS_DIR` points, inside this process only, at a temporary
+    copy of the assets without body_policy.npz (`_AssetsWithout`);
+  - torch_go1gate_events_step.npz: go1gate with push, action lag and
+    tanh/delta command clipping, and a step where each termination term
+    fires (`record_events`).
+Nothing under mqe_tpu/ is written.
 """
 import os
 import sys
@@ -582,6 +600,380 @@ def record_ppo_update() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# locomotion training and the `policy` backend
+# ---------------------------------------------------------------------------
+
+LOCO_ENVS = 4
+
+
+def _loco_cfg(backend="residual"):
+    from mqe_tpu.learn.locomotion_env import LocomotionTrainCfg
+
+    class Cfg(LocomotionTrainCfg):
+        class control(LocomotionTrainCfg.control):
+            locomotion_backend = backend
+
+    return Cfg
+
+
+def _command_draws(key, n, resample_prob=0.0):
+    """The draws of LocomotionEnv._sample_commands (and of the fast switch)
+    from `key`, by the names the port takes them under."""
+    if resample_prob > 0.0:
+        key, k_fast = jax.random.split(key)
+    k1, k2, k3 = jax.random.split(key, 3)
+    out = {"cmd_vx": jax.random.uniform(k1, (n,), minval=-1.0, maxval=1.0),
+           "cmd_vy": jax.random.uniform(k2, (n,), minval=-0.6, maxval=0.6),
+           "cmd_wz": jax.random.uniform(k3, (n,), minval=-1.0, maxval=1.0)}
+    if resample_prob > 0.0:
+        out["cmd_switch"] = jax.random.uniform(k_fast, (n,))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _gait_draws(key, n):
+    """The draws of LocomotionEnv._sample_gaits from `key`."""
+    ku, kg = jax.random.split(key)
+    return {"gait_switch": np.asarray(jax.random.uniform(ku, (n,))),
+            "gait_other": np.asarray(jax.random.randint(kg, (n,), 1, 4))}
+
+
+def _loco_step_draws(env, key):
+    """{name: array} of everything LocomotionEnv._step_impl draws from `key`,
+    and its fresh reset state."""
+    k_reset, k_cmd, k_gait = jax.random.split(key, 3)
+    draws = _command_draws(k_cmd, env.num_envs, env.resample_prob)
+    if env.multi_gait > 0.0:
+        draws.update(_gait_draws(k_gait, env.num_envs))
+    return draws, env.env._reset_all(k_reset)
+
+
+def _finish_start(ts):
+    """Env 0 one step short of its timeout, its episode tracked well enough
+    to widen the command range; env 1 one step short of the 5 s resample."""
+    import jax.numpy as jnp
+
+    E = ts.env.episode_length.shape[0]
+    length = np.zeros(E, np.int32)
+    length[0], length[1] = 499, 249
+    acc = np.zeros(E, np.float32)
+    acc[0] = 450.0
+    return ts.replace(env=ts.env.replace(episode_length=jnp.asarray(length)),
+                      track_acc=jnp.asarray(acc))
+
+
+# case: (backend, multi_gait, resample_prob, warm steps, the start's edit)
+LOCO_CASES = {"residual-lag": ("residual", 0.0, 0.0, 0, None),
+              "policy": ("policy", 0.0, 0.0, 0, None),
+              "multi-gait": ("residual", 0.5, 0.5, 0, None),
+              "policy-warm": ("policy", 0.0, 0.0, 10, None),
+              "finish": ("residual", 0.5, 0.5, 10, _finish_start)}
+
+
+def record_locomotion() -> dict:
+    """LocomotionEnv at LOCO_ENVS envs: for each of LOCO_CASES, the reset
+    from PRNGKey(0) with its draws ("<case>/reset/..."), the start (the reset
+    state, or the state after the case's warm steps, whose actions come
+    first and keys from PRNGKey(1); edited for "finish"), actions
+    rl_prescale(N(0, 1)) from RandomState(3), and one step with PRNGKey(7):
+    its draws, its fresh state, the state, obs, reward, done, reset_mask,
+    time_outs and each reward term. From the reset the lag FIFO holds no
+    action yet, so the warmed cases are those in which the actions reach
+    the actuators."""
+    from mqe_tpu.learn.locomotion_env import LocomotionEnv
+
+    rec = {}
+    for case, (backend, multi_gait, resample_prob, warm, edit) in LOCO_CASES.items():
+        env = LocomotionEnv(num_envs=LOCO_ENVS, seed=0, cfg=_loco_cfg(backend),
+                            resample_prob=resample_prob, multi_gait=multi_gait)
+        key = jax.random.PRNGKey(0)
+        ts, obs = env.reset(key)
+        k1, k2 = jax.random.split(key)
+        reset_draws = _command_draws(k2, LOCO_ENVS)
+        if multi_gait > 0.0:
+            reset_draws.update(_gait_draws(jax.random.fold_in(key, 7), LOCO_ENVS))
+        for k, v in reset_draws.items():
+            rec[f"{case}/reset/draws/{k}"] = v
+        rec[f"{case}/reset/obs"] = np.asarray(obs)
+        rec.update(_flat(f"{case}/reset/state", ts))
+        acts = np.random.RandomState(3).randn(warm + 1, LOCO_ENVS, 1, 12).astype(np.float32)
+        acts = np.asarray(env.rl_prescale(acts))
+        key = jax.random.PRNGKey(1)
+        for t in range(warm):
+            key, k = jax.random.split(key)
+            ts = env.step(ts, acts[t], k)[0]
+        if edit is not None:
+            ts = edit(ts)
+        acts = acts[warm]
+        step_key = jax.random.PRNGKey(7)
+        draws, fresh = _loco_step_draws(env, step_key)
+        ts1, obs1, rew, done, info = env.step(ts, acts, step_key)
+        rec.update(_flat(f"{case}/start", ts))
+        rec[f"{case}/actions"] = acts
+        for k, v in draws.items():
+            rec[f"{case}/draws/{k}"] = v
+        rec.update(_flat(f"{case}/fresh", fresh))
+        rec.update(_flat(f"{case}/out", ts1))
+        rec[f"{case}/obs"], rec[f"{case}/reward"] = np.asarray(obs1), np.asarray(rew)
+        rec[f"{case}/done"] = np.asarray(done)
+        rec[f"{case}/reset_mask"] = np.asarray(info["reset_mask"])
+        rec[f"{case}/time_outs"] = np.asarray(info["time_outs"])
+        rec.update(_flat(f"{case}/terms", info["reward_terms"]))
+    return rec
+
+
+# the walk-these-ways body MLP at its published widths, weights drawn
+WTW_SIZES = (2100 + 2, 512, 256, 128, 12)
+
+
+def wtw_params(seed=5):
+    """JAX `mlp_apply` params {"w": [(in, out)], "b": [...], "act": "elu"}
+    of the walk-these-ways body MLP, drawn from RandomState(seed) with
+    1/sqrt(fan_in) kernels (the reference's weights are not in the repo)."""
+    rng = np.random.RandomState(seed)
+    ws = [(rng.randn(a, b) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(WTW_SIZES[:-1], WTW_SIZES[1:])]
+    bs = [(0.1 * rng.randn(b)).astype(np.float32) for b in WTW_SIZES[1:]]
+    return {"w": ws, "b": bs, "act": "elu"}
+
+
+def _policy_cfg(pd_augment):
+    from mqe_tpu.envs.tasks import Go1PlaneCfg
+
+    class Cfg(Go1PlaneCfg):
+        class control(Go1PlaneCfg.control):
+            locomotion_backend = "policy"
+            policy_pd_augment = pd_augment
+
+    return Cfg
+
+
+class _AssetsWithout:
+    """Points `mqe_tpu.ASSETS_DIR` at a temporary copy of the assets without
+    `name`, inside this process only; nothing under mqe_tpu/ is written."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        import shutil
+        import tempfile
+
+        import mqe_tpu
+
+        self.old, self.tmp = mqe_tpu.ASSETS_DIR, tempfile.mkdtemp()
+        for f in os.listdir(self.old):
+            if f != self.name:
+                shutil.copy(os.path.join(self.old, f), self.tmp)
+        mqe_tpu.ASSETS_DIR = self.tmp
+        return self.tmp
+
+    def __exit__(self, *exc):
+        import shutil
+
+        import mqe_tpu
+
+        mqe_tpu.ASSETS_DIR = self.old
+        shutil.rmtree(self.tmp)
+
+
+def record_policy_backend() -> dict:
+    """The `policy` backend on go1plane at NUM_ENVS envs, one step each with
+    PRNGKey(7) and actions from RandomState(3):
+      - "npz", "npz-pd": the body policy of assets/body_policy.npz, with
+        policy_pd_augment False and True, from the "in-contact" start of
+        torch_go1plane_step.npz;
+      - "wtw": the assets without body_policy.npz (hist_len 30), the body MLP
+        of `wtw_params()` installed by load_locomotion_policy, from the state
+        after 3 steps from the reset of PRNGKey(0).
+    And "torques/pd0", "torques/pd1": one `_torques` call from the "npz"
+    start with its actions' locomotion action, PD gated off and on."""
+    import jax.numpy as jnp
+
+    from mqe_tpu.envs.wrappers import EmptyWrapper
+    from mqe_tpu.envs.go1_env import Go1Env
+
+    rec = {}
+    nact = EmptyWrapper(Go1Env(_policy_cfg(False), num_envs=NUM_ENVS, seed=0)).num_agents
+    acts = np.random.RandomState(3).uniform(-1, 1, (4, NUM_ENVS, nact, 3)).astype(np.float32)
+    with np.load(os.path.join(GOLDENS, "torch_go1plane_step.npz")) as f:
+        plane = {k: f[k] for k in f.files}
+    for case, pd in (("npz", False), ("npz-pd", True)):
+        wrap = EmptyWrapper(Go1Env(_policy_cfg(pd), num_envs=NUM_ENVS, seed=0))
+        assert wrap.env.hist_len == 0 and callable(wrap.env.body_policy_params)
+        template, _ = wrap.reset(jax.random.PRNGKey(0))
+        prefix = "in-contact/start"
+        start = {k: v for k, v in plane.items() if k.startswith(prefix + "/")}
+        paths = list(_flat(prefix, template))
+        assert sorted(paths) == sorted(start)
+        ts0 = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(template),
+                                           [jnp.asarray(start[p]) for p in paths])
+        ts1, obs, rew, done, _ = wrap.step(ts0, acts[0], jax.random.PRNGKey(7))
+        rec.update(_flat(f"{case}/start", ts0))
+        rec.update(_flat(f"{case}/out", ts1))
+        rec[f"{case}/actions"] = acts[0]
+        rec[f"{case}/obs"], rec[f"{case}/reward"] = np.asarray(obs), np.asarray(rew)
+        rec[f"{case}/done"] = np.asarray(done)
+        # one _torques call with the step's locomotion action
+        env = wrap.env
+        cmd = jnp.clip(jnp.asarray(acts[0]) * jnp.asarray([2.0, 0.5, 0.5]), -1.0, 1.0)
+        action = env._locomotion_action(ts0.env, cmd)[0]
+        tau, err_hist, lag, target = env._torques(ts0.env, action)
+        rec[f"torques/pd{int(pd)}/action"] = np.asarray(action)
+        rec[f"torques/pd{int(pd)}/tau"] = np.asarray(tau)
+    params = wtw_params()
+    with _AssetsWithout("body_policy.npz"):
+        wrap = EmptyWrapper(Go1Env(_policy_cfg(False), num_envs=NUM_ENVS, seed=0))
+    env = wrap.env
+    assert env.hist_len == 30 and env.body_policy_params is None
+    env.load_locomotion_policy({"w": [jnp.asarray(w) for w in params["w"]],
+                                "b": [jnp.asarray(b) for b in params["b"]], "act": "elu"})
+    ts, _ = wrap.reset(jax.random.PRNGKey(0))
+    key = jax.random.PRNGKey(1)
+    for t in range(3):
+        key, k = jax.random.split(key)
+        ts = wrap.step(ts, acts[1 + t], k)[0]
+    ts1, obs, rew, done, _ = wrap.step(ts, acts[0], jax.random.PRNGKey(7))
+    rec.update(_flat("wtw/start", ts))
+    rec.update(_flat("wtw/out", ts1))
+    rec["wtw/actions"] = acts[0]
+    rec["wtw/obs"], rec["wtw/reward"] = np.asarray(obs), np.asarray(rew)
+    rec["wtw/done"] = np.asarray(done)
+    return rec
+
+
+def _events_cfg():
+    """go1gate with push (every step), action lag, tanh and delta command
+    clipping on, and the locomotion training's termination thresholds (the
+    task's pitch threshold, 1.6, lies past the pitch's range)."""
+    from mqe_tpu.envs.tasks import Go1GateCfg
+
+    class Cfg(Go1GateCfg):
+        class domain_rand(Go1GateCfg.domain_rand):
+            push_robots = randomize_lag_timesteps = True
+            push_interval_s = 0.02
+            lag_timesteps = 6
+
+        class normalization(Go1GateCfg.normalization):
+            clip_actions_method = "tanh"
+            clip_actions_delta = 0.1
+
+        class termination(Go1GateCfg.termination):
+            termination_terms = ["roll", "pitch", "z_low"]
+            roll_kwargs = dict(threshold=0.8)
+            pitch_kwargs = dict(threshold=1.0)
+            z_low_kwargs = dict(threshold=0.12)
+
+    return Cfg
+
+
+EVENT_ENVS = 4
+
+
+def _tilt(q, axis, angle):
+    """Quaternion (xyzw) q rotated by `angle` about the world `axis`."""
+    import jax.numpy as jnp
+
+    from mqe_tpu.ops import quat as quat_ops
+
+    r = np.zeros(4, np.float32)
+    r[axis] = np.sin(angle / 2)
+    r[3] = np.cos(angle / 2)
+    return quat_ops.quat_mul(jnp.asarray(r), q)
+
+
+def record_events() -> dict:
+    """Queue C item 5: go1gate (`_events_cfg`) at EVENT_ENVS envs, reset
+    with PRNGKey(0) and stepped WARM_STEPS times (actions uniform(-1, 1)
+    from RandomState(3), keys from PRNGKey(1)). Two cases, one step each
+    with PRNGKey(7), recording its push draw ("push_vel") and fresh state:
+      - "push-lag-clip": from the warmed state;
+      - "terminations": from the warmed state with env 0 rolled by 1.2 rad,
+        env 1 pitched by 1.3 rad, env 2 lowered to z 0.09 and env 3's trunk
+        put into the ground (z 0.03): roll, pitch, z_low and collide.
+    The step's pre-reset flags stand in its out state ("out/env/done",
+    "collide", "r_term", "p_term")."""
+    from mqe_tpu.envs.go1_env import Go1Env
+    from mqe_tpu.envs.wrappers import Go1GateWrapper
+
+    E = EVENT_ENVS
+    wrap = Go1GateWrapper(Go1Env(_events_cfg(), num_envs=E, seed=0))
+    ts, _ = wrap.reset(jax.random.PRNGKey(0))
+    rng = np.random.RandomState(3)
+    acts = rng.uniform(-1, 1, (WARM_STEPS + 1, E, 2, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(1)
+    for t in range(WARM_STEPS):
+        key, k = jax.random.split(key)
+        ts = wrap.step(ts, acts[t], k)[0]
+    ag = ts.env.phys.agents
+    quat = ag.quat.at[0].set(_tilt(ag.quat[0], 0, 1.2)).at[1].set(_tilt(ag.quat[1], 1, 1.3))
+    pos = ag.pos.at[2, :, 2].set(0.09).at[3, :, 2].set(0.03)
+    events = ts.replace(env=ts.env.replace(phys=ts.env.phys.replace(
+        agents=ag.replace(quat=quat, pos=pos))))
+    step_key = jax.random.PRNGKey(7)
+    _, k_push, k_reset, _ = jax.random.split(step_key, 4)
+    mv = wrap.env.cfg.domain_rand.max_push_vel_xy
+    push = np.asarray(jax.random.uniform(k_push, (E, 2, 2), minval=-mv, maxval=mv))
+    fresh = wrap.env._reset_all(k_reset)
+    rec = {}
+    for case, ts0 in (("push-lag-clip", ts), ("terminations", events)):
+        ts1, obs, rew, done, _ = wrap.step(ts0, acts[WARM_STEPS], step_key)
+        rec.update(_flat(f"{case}/start", ts0))
+        rec.update(_flat(f"{case}/out", ts1))
+        rec.update(_flat(f"{case}/fresh", fresh))
+        rec[f"{case}/push_vel"] = push
+        rec[f"{case}/actions"] = acts[WARM_STEPS]
+        rec[f"{case}/obs"], rec[f"{case}/reward"] = np.asarray(obs), np.asarray(rew)
+        rec[f"{case}/done"] = np.asarray(done)
+    return rec
+
+
+def record_loco_ppo_update() -> dict:
+    """One PPOTrainer update of LocomotionEnv (residual, lag on) at NUM_ENVS
+    envs, `UPDATE_CFG`, the network at `NARROW` widths (obs 70, actions 12),
+    seed-0 init params, from the trainer's own reset ("start/..."): the
+    action noise ("noise") and each step's command draws ("draws/<name>",
+    (T, E)), the rollout, the epochs' permutations and the params after."""
+    from mqe_tpu.learn.locomotion_env import LocomotionEnv
+    from mqe_tpu.learn.ppo import PPOConfig, PPOTrainer
+
+    env = LocomotionEnv(num_envs=NUM_ENVS, seed=0, cfg=_loco_cfg("residual"))
+    tr = _narrow(PPOTrainer(env, PPOConfig(ent_coef=1e-3, lr=3e-4, **UPDATE_CFG), seed=0), "mlp")
+    ts = tr.init_state()
+    T, E, A = tr.cfg.rollout_len, tr.E, tr.A
+    rec = _flat("init/params", ts.params)
+    rec.update(_flat("start", ts.env_state))
+    key, noise, draws = ts.key, [], []
+    for _ in range(T):
+        key, k_act, k_env = jax.random.split(key, 3)
+        noise.append(np.asarray(jax.random.normal(k_act, (E, A, tr.act_dim))))
+        draws.append(_loco_step_draws(env, k_env)[0])
+    rec["noise"] = np.stack(noise)
+    for k in draws[0]:
+        rec[f"draws/{k}"] = np.stack([d[k] for d in draws])
+    rollout = jax.jit(tr._rollout)(ts)
+    env_state, rkey, traj, final_value, ep_acc, _ = rollout
+    assert np.array_equal(np.asarray(rkey), np.asarray(key)), "the rollout's key chain"
+    assert not np.asarray(traj["done"]).any(), "an env finished: its fresh state is not recorded"
+    rec.update(_flat("traj", traj))
+    rec["final_value"] = np.asarray(final_value)
+    rec.update(_flat("out_env", env_state))
+    rec.update(_flat("ep_acc", ep_acc))
+    perm = []
+    for _ in range(tr.cfg.ppo_epochs):
+        rkey, kperm = jax.random.split(rkey)
+        perm.append(np.asarray(jax.random.permutation(kperm, T * E * A)))
+    rec["perm"] = np.stack(perm)
+    tr._rollout = lambda _ts: rollout
+    after, metrics = jax.jit(tr._update_impl)(ts)
+    rec.update(_flat("after/params", after.params))
+    rec.update(_flat("after/metrics", metrics))
+    rec["after/ret_mean"] = np.asarray(after.ret_mean)
+    rec["after/ret_var"] = np.asarray(after.ret_var)
+    rec["done"] = np.asarray(traj["done"])
+    return rec
+
+
 FILES = {
     "torch_go1gate_step.npz": partial(record, "go1gate", ("post-reset", "in-contact")),
     "torch_go1gate_reset_step.npz": partial(record, "go1gate", ("reset-step",)),
@@ -611,6 +1003,10 @@ FILES = {
     "torch_static_substep.npz": partial(record_npc_substep, tuple(STATIC_CASES), STATIC_CASES),
     "torch_learn.npz": record_learn,
     "torch_go1gate_ppo_update.npz": record_ppo_update,
+    "torch_locomotion_step.npz": record_locomotion,
+    "torch_policy_step.npz": record_policy_backend,
+    "torch_go1gate_events_step.npz": record_events,
+    "torch_locomotion_ppo_update.npz": record_loco_ppo_update,
 }
 
 

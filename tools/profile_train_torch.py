@@ -1,10 +1,12 @@
 """Where one training update of the PyTorch port spends its time on the card.
 
-    python3 tools/profile_train_torch.py [--task go1gate] [--algo ppo|gru|mat]
+    python3 tools/profile_train_torch.py [--task go1gate|locomotion] [--algo ppo|gru|mat]
         [--num-envs 4096] [--updates 2]
 
-PPOConfig's defaults (T = 32, 4 minibatches, 4 epochs); one warm update,
-then three views of the same kind of update:
+PPOConfig's defaults (T = 32, 4 minibatches, 4 epochs); `--task locomotion`
+trains LocomotionEnv with learn/train_locomotion.py's PPOConfig (lr 3e-4,
+entropy 1e-3; ppo only). One warm update, then three views of the same kind
+of update:
   * wall: rollout and SGD timed apart by `PPOTrainer.timed_update` (the
     helper chip_smoke.py's phase `train` uses), the device synchronized at
     each end;
@@ -12,7 +14,9 @@ then three views of the same kind of update:
     kernel against the wall time gives the busy share, the kernel count the
     launches the host makes;
   * stages: the host clock, synchronized on both sides, around the env step,
-    the policy, the episode accumulator, GAE and the minibatch steps.
+    the policy, the episode accumulator, GAE and the minibatch steps; and
+    inside the env step around Go1Env's locomotion action, torques
+    (actuator net), physics substeps and termination.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -31,6 +35,7 @@ from torch.autograd import DeviceType
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mqe_tpu_torch.envs.registry import make_mqe_env  # noqa: E402
+from mqe_tpu_torch.learn.locomotion_env import LocomotionEnv  # noqa: E402
 from mqe_tpu_torch.learn.mat import MATTrainer  # noqa: E402
 from mqe_tpu_torch.learn.ppo import PPOConfig, PPOTrainer  # noqa: E402
 from mqe_tpu_torch.utils import metrics  # noqa: E402
@@ -60,7 +65,8 @@ def update(tr, ts):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--task", default="go1gate")
+    ap.add_argument("--task", default="go1gate",
+                    help="a task of the registry, or 'locomotion' (LocomotionEnv)")
     ap.add_argument("--algo", default="ppo", choices=sorted(ALGOS))
     ap.add_argument("--num-envs", type=int, default=4096)
     ap.add_argument("--updates", type=int, default=2)
@@ -69,8 +75,14 @@ def main():
         sys.exit("profile_train_torch: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    wrap, _ = make_mqe_env(args.task, num_envs=args.num_envs, seed=0, device="cuda")
-    cls, cfg = ALGOS[args.algo]
+    if args.task == "locomotion":
+        if args.algo != "ppo":
+            sys.exit("profile_train_torch: locomotion trains with ppo only")
+        wrap = LocomotionEnv(num_envs=args.num_envs, seed=0, device="cuda")
+        cls, cfg = PPOTrainer, PPOConfig(lr=3e-4, ent_coef=1e-3)  # train_locomotion's
+    else:
+        wrap, _ = make_mqe_env(args.task, num_envs=args.num_envs, seed=0, device="cuda")
+        cls, cfg = ALGOS[args.algo]
     tr = cls(wrap, cfg, seed=0)
     ts, _, _ = update(tr, tr.init_state())  # warm
 
@@ -98,10 +110,16 @@ def main():
     stages = {"env step (wrapper.step)": (wrap, "step"), "policy (sampling)": (tr, "_policy"),
               "episode accumulator": (metrics.EpisodeAccumulator, "update"),
               "GAE": (tr, "_gae"), "SGD (16 minibatch steps)": (tr, "_sgd")}
+    inner = {"locomotion action": "_locomotion_action", "torques (actuator net)": "_torques",
+             "physics (substeps)": "_physics", "termination": "_termination"}
     for name, (owner, attr) in stages.items():
         setattr(owner, attr, timed(name, getattr(owner, attr)))
+    for name, attr in inner.items():
+        setattr(wrap.env, attr, timed(name, getattr(wrap.env, attr)))
     ts, r, s = update(tr, ts)
     ms = {k: ACC[k] * 1e3 for k in stages}
+    inner_ms = {k: ACC[k] * 1e3 for k in inner}
+    inner_ms["rest of the env step"] = ms["env step (wrapper.step)"] - sum(inner_ms.values())
     ms["rest of the rollout"] = r * 1e3 - sum(ms[k] for k in list(stages)[:3])
     ms["rest of the SGD half (valuenorm, batch)"] = s * 1e3 - ms["GAE"] - ms["SGD (16 minibatch steps)"]
 
@@ -117,11 +135,15 @@ def main():
     print(f"stages (synchronized, {(r + s) * 1e3:.1f} ms):")
     for k, v in sorted(ms.items(), key=lambda kv: -kv[1]):
         print(f"  {v:9.2f} ms  {k}")
+    print("inside the env step (synchronized around each):")
+    for k, v in sorted(inner_ms.items(), key=lambda kv: -kv[1]):
+        print(f"  {v:9.2f} ms  {k}")
     print(json.dumps({"task": args.task, "algo": args.algo, "num_envs": E,
                       "rollout_ms": rollout_s * 1e3, "sgd_ms": sgd_s * 1e3,
                       "env_steps_per_s": T * E * A / upd, "env_steps_per_s_TE": T * E / upd,
                       "device_ms": dev_us / 1e3, "kernels": n_kernels,
-                      "busy_share": dev_us / 1e6 / prof_wall, "stages_ms": ms, "card": smi}))
+                      "busy_share": dev_us / 1e6 / prof_wall, "stages_ms": ms,
+                      "env_step_ms": inner_ms, "card": smi}))
 
 
 if __name__ == "__main__":
