@@ -31,7 +31,10 @@ Phases, each printing one line with its elapsed seconds:
                B = 1 floor for the box and the seesaw;
   6. check   - one control step at 2 envs of each of the 14 tasks on the card
                (kernels) and on the CPU (plain versions) from the same state,
-               with the same draws, compared, NPCs included;
+               with the same draws, compared, NPCs included; and go1wrestling
+               from the generator's second reset draw, measured and printed
+               (not held to CHECK_TOLS: float32 noise the ring contact
+               amplifies, PERF.md §6);
   7. slice   - every task but go1plane at 4096 envs through make_mqe_env ->
                reset -> step: 1 warm step and the timed steps of `SLICES`.
                Every kernel's count is set to 0 just before a task's run and
@@ -67,8 +70,37 @@ Phases, each printing one line with its elapsed seconds:
                temporary directory, its npz read back with
                `load_body_policy` and compared with the trained actor; and a
                few GymAdapter / SingleAgentAdapter steps on go1gate.
-Then the kernels' JSON line (`launches`: the sum over the slices' and the
-training updates' runs, by task, "train" and "locomotion" under
+ 10. curriculum - the runtime terrain curriculum on a Legacy heightfield
+               (`CurrCfg`: LegacyTerrainBuilder's 10 rows x 20 columns of 8 m
+               tiles at 0.025 m cells, a 3280 x 6480 table on the card), one
+               robot an env, the depth camera on (the heightfield march):
+               one step card vs CPU at 4 envs on level 0 with the same draws
+               (the state at CHECK_TOLS, the levels equal, the depth images
+               at DEPTH_TOL); then at SLICE_ENVS envs a build, a reset, 1
+               warm and CURR_STEPS timed steps, and a step with the robots
+               moved past curr_up_dist and every episode at its end: the
+               levels rise (a random level past the last). 8 launches of the
+               step kernel and of the sphere FK a step.
+ 11. camera  - the onboard depth and RGB camera: the images of go1gate and
+               go1sheep-easy (the NPC impostors) card vs CPU at 2 envs from
+               the same state (DEPTH_TOL, RGB_TOL); at SLICE_ENVS envs go1gate
+               (8192 cameras of 256 rays) with 1 warm and 20 timed steps and
+               go1sheep-easy with 5, each beside the same task without the
+               camera timed in this process; the launches a step as in
+               `slice`.
+ 12. mpc     - the command-space MPC: `fit_command_model` on go1gate at
+               SLICE_ENVS envs (80 steps, as `run_mpc --fit`); CommandMPC
+               (task "gate", H = 20, 8 iterations) with that model, 1 warm
+               and MPC_CYCLES timed cycles of 5 env steps: ms a cycle, ms a
+               solve (MPC_SOLVES solves timed alone), solves/s, and the mean
+               x progress, which must pass 0.1 m; go1pushbox (task
+               "pushbox") for 5 cycles; one solve card vs CPU at 2 envs from
+               the same x0, warm start and args (cost at MPC_COST_REL); and
+               `run_mpc.main` at SLICE_ENVS envs for 5 cycles. The launches a
+               step as in `slice`, the solves launching none.
+Then the kernels' JSON line (`launches`: the sum over the slices', the
+training updates' and the new phases' runs, by task, "train",
+"locomotion", "curriculum", "camera" and "mpc" under
 `launches_by_task`), the
 card's name and power limit, and the result line `{"ok": true, "device":
 {...}}`. Any failed phase raises (exit code 1); with no CUDA device it exits
@@ -93,6 +125,7 @@ sys.path.insert(0, REPO)
 import mqe_tpu_torch  # noqa: E402
 from mqe_tpu_torch.control.nets import load_body_policy  # noqa: E402
 from mqe_tpu_torch.envs import tasks as T  # noqa: E402
+from mqe_tpu_torch.envs.config import Go1Cfg  # noqa: E402
 from mqe_tpu_torch.envs import wrappers as W  # noqa: E402
 from mqe_tpu_torch.envs.go1_env import Go1Env  # noqa: E402
 from mqe_tpu_torch.envs.gym_adapter import GymAdapter, SingleAgentAdapter  # noqa: E402
@@ -102,10 +135,13 @@ from mqe_tpu_torch.learn.locomotion_env import LocomotionEnv  # noqa: E402
 from mqe_tpu_torch.learn.mat import MATTrainer  # noqa: E402
 from mqe_tpu_torch.learn.networks import gaussian_logp  # noqa: E402
 from mqe_tpu_torch.learn.ppo import PPOConfig, PPOTrainer  # noqa: E402
+from mqe_tpu_torch.mpc import CommandMPC, fit_command_model, run_mpc  # noqa: E402
+from mqe_tpu_torch.mpc.controller import planner_state  # noqa: E402
 from mqe_tpu_torch.physics import fused_step, soa  # noqa: E402
 from mqe_tpu_torch.physics.model import go1_model, load_model  # noqa: E402
 from mqe_tpu_torch.utils.convert import env_state_to, wtw_body_from_numpy  # noqa: E402
 from mqe_tpu_torch.utils.opcount import count_ops  # noqa: E402
+from mqe_tpu_torch.utils.random import Draws  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
 # without tensor cores
@@ -150,6 +186,14 @@ TRAIN_RUNS = (("ppo", PPOTrainer, PPOConfig(), 3),
 EVAL_CHECKPOINTS = (("go1bridge", "checkpoints/r5b/go1bridge_ppo_best.npz", False),
                     ("go1gate", "checkpoints/rec/go1gate_ppo_best.npz", True))
 SGD_TOL = 1e-5  # params after one SGD phase, card vs CPU
+# phases curriculum, camera, mpc: the image bounds of tests/test_torch_camera.py,
+# the timed steps, the MPC's timed cycles and solves, and the solve's cost
+# card vs CPU at the bound tests/test_torch_mpc.py holds a solve to against JAX
+DEPTH_TOL, RGB_TOL = 1e-4, 1e-4
+CURR_STEPS = 20
+CAMERA_TASKS = {"go1gate": 20, "go1sheep-easy": 5}
+MPC_CYCLES, MPC_SOLVES, PUSHBOX_CYCLES = 20, 5, 5
+MPC_COST_REL = 1e-3
 
 T0 = time.perf_counter()
 
@@ -473,13 +517,14 @@ def phase_fk_full(smi):
     )
 
 
-def compare_step(label, wrap_c, wrap_h, ts_c, acts, given, terms=False):
+def compare_step(label, wrap_c, wrap_h, ts_c, acts, given, terms=False, gate=True):
     """One step of the state `ts_c` on the card (kernels) and of its copy on
     the CPU (plain versions) with the same actions and draws (`given`: numpy
     arrays and the "fresh" state on the card), compared at CHECK_TOLS, obs
     and reward (and with `terms` every reward term) at 1e-4, commands at
     1e-5. The step must end no episode. `wrap_c`/`wrap_h` are task wrappers
-    or LocomotionEnvs."""
+    or LocomotionEnvs. With `gate` off the differences are printed and not
+    held to the bounds (a measurement, not a check)."""
     ts_h = env_state_to(ts_c, "cpu")
     on = lambda d, dev: {k: (env_state_to(v, dev) if k == "fresh"  # noqa: E731
                              else torch.as_tensor(v, device=dev)) for k, v in d.items()}
@@ -497,8 +542,12 @@ def compare_step(label, wrap_c, wrap_h, ts_c, acts, given, terms=False):
             worst[f"{who}.{n}"] = float((a - b).abs().max()) if a.numel() else 0.0
     for n, v in worst.items():
         tol = CHECK_TOLS[n.split(".")[1]]
-        if not v <= tol:
+        if gate and not v <= tol:
             raise AssertionError(f"check {label} {n}: card vs CPU {v:.3e} > {tol:.0e}")
+    if not gate:
+        say("check", f"{label}, card vs CPU after one step (measured, not gated): "
+            + ", ".join(f"{n} {v:.3e}" for n, v in worst.items()))
+        return
     other = {"obs": (out_c[1], out_h[1]), "reward": (out_c[2], out_h[2])}
     for k, v in (out_h[4]["reward_terms"].items() if terms else ()):
         other[f"term {k}"] = (out_c[4]["reward_terms"][k], v)
@@ -514,22 +563,54 @@ def compare_step(label, wrap_c, wrap_h, ts_c, acts, given, terms=False):
         + ", ".join(f"{n} {v:.3e}" for n, v in worst.items()))
 
 
-def phase_check(task):
+def phase_check(task, draw=1):
     """One step at 2 envs: kernels on the card vs plain on the CPU, with the
-    same draws (the reset state, the sheep script's noise)."""
+    same draws (the reset state, the sheep script's noise), from the
+    generator's `draw`-th reset draw. The first draw is the gate; a later
+    one is measured and printed: from go1wrestling's second the two part by
+    qd 3.956e-2, float32 noise that the ring contact amplifies substep by
+    substep (PERF.md §6; tools/compare_card_cpu_substeps.py)."""
     wrap_c, _ = make_mqe_env(task, num_envs=2, seed=0, device="cuda")
     wrap_h, _ = make_mqe_env(task, num_envs=2, seed=0, device="cpu")
+    for _ in range(draw - 1):
+        wrap_c.env.fresh_state()
     ts_c, _ = wrap_c.reset()
     rng = np.random.RandomState(5)
     acts = rng.uniform(-1, 1, (2, wrap_c.controlled_agents, 3)).astype(np.float32)
     given = {"fresh": wrap_c.env.fresh_state(),  # the reset state, should an env reset
              "npc_noise": rng.randn(2, wrap_c.num_npcs, 3).astype(np.float32)}
-    compare_step(f"{task} 2 envs", wrap_c, wrap_h, ts_c, acts, given)
+    compare_step(f"{task} 2 envs, reset draw {draw}", wrap_c, wrap_h, ts_c, acts, given,
+                 gate=draw == 1)
+
+
+def reset_counts():
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: wrapper.launches for name, wrapper in KERNELS.items()}
+
+
+def check_counts(label, launches, env, steps):
+    """`launches` of `steps` env steps of `env` (a Go1Env): 8 of the step
+    kernel and of the sphere FK a step, twice the step kernel and the full FK
+    as well with colliding NPCs."""
+    substeps = env.decimation * env.subiters
+    npc = env.scene.num_npcs > 0
+    expect = {"fused_step_kernel": substeps * (2 if npc else 1) * steps,
+              "fk_spheres_kernel": substeps * steps, "fk_full_kernel": substeps * steps if npc else 0}
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches} in {steps} steps, expected {expect}")
+
+
+def add_counts(total, launches):
+    for name, c in launches.items():
+        total[name] += c
 
 
 def phase_slice(smi, task, num_envs=SLICE_ENVS, steps=20):
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    reset_counts()
     wrap, _ = make_mqe_env(task, num_envs=num_envs, seed=0, device="cuda")
     ts, obs = wrap.reset()
     torch.cuda.synchronize()
@@ -545,15 +626,8 @@ def phase_slice(smi, task, num_envs=SLICE_ENVS, steps=20):
         ts, obs, rew, done, info = wrap.step(ts, cmds)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: wrapper.launches for name, wrapper in KERNELS.items()}
-    substeps = wrap.env.decimation * wrap.env.subiters
-    npc = wrap.env.scene.num_npcs > 0
-    expect = {"fused_step_kernel": substeps * (2 if npc else 1), "fk_spheres_kernel": substeps,
-              "fk_full_kernel": substeps if npc else 0}
-    for name, n in launches.items():
-        if n != expect[name] * (steps + 1):
-            raise AssertionError(f"{task}: {name} launched {n} times in {steps + 1} steps, "
-                                 f"expected {expect[name]} a step")
+    launches = read_counts()
+    check_counts(f"{task} {steps + 1} steps", launches, wrap.env, steps + 1)
     npcs = ts.env.phys.npcs
     for name, t, shape in (("obs", obs, (num_envs, nact, wrap.obs_dim)),
                            ("reward", rew, (num_envs, nact)),
@@ -564,24 +638,19 @@ def phase_slice(smi, task, num_envs=SLICE_ENVS, steps=20):
                                  "or non-finite")
     sps = num_envs * steps / dt
     say("slice", f"{task}: {steps} steps in {dt:.3f} s: {sps:.1f} env-steps/s, "
-        f"{dt / steps * 1e3:.2f} ms/step, kernel launches {launches} in {steps + 1} steps "
-        f"({expect} a step), resets {int(done.sum())} in the last step; on {smi}")
+        f"{dt / steps * 1e3:.2f} ms/step, kernel launches {launches} in {steps + 1} steps, "
+        f"resets {int(done.sum())} in the last step; on {smi}")
     return launches
 
 
 def train_update(tr, ts, smi, label, u):
     """One training update, its rollout and SGD timed apart; the kernels'
     counts set to 0 before it and read after it."""
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    reset_counts()
     ts, m, rollout_s, sgd_s = tr.timed_update(ts)
-    launches = {name: wrapper.launches for name, wrapper in KERNELS.items()}
+    launches = read_counts()
     T, E, A = tr.cfg.rollout_len, tr.E, tr.A
-    substeps = tr.w.env.decimation * tr.w.env.subiters
-    expect = {"fused_step_kernel": substeps * T, "fk_spheres_kernel": substeps * T,
-              "fk_full_kernel": 0}
-    if launches != expect:
-        raise AssertionError(f"train {label} update {u}: launches {launches}, expected {expect}")
+    check_counts(f"train {label} update {u}", launches, tr.w.env, T)
     loss = float(m["loss"])
     if not np.isfinite(loss):
         raise AssertionError(f"train {label} update {u}: loss {loss}")
@@ -768,20 +837,15 @@ def phase_locomotion(smi):
         if not err <= 1e-5:
             raise AssertionError(f"locomotion: body policy npz read back differs by {err:.3e}")
         # the entry point: one update of train_locomotion's own run
-        for wrapper in KERNELS.values():
-            wrapper.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         out = train_locomotion.main(["--num-envs", str(LOCO_ENVS), "--rollout-len",
                                      str(cfg.rollout_len), "--train-timesteps",
                                      str(cfg.rollout_len * LOCO_ENVS), "--out",
                                      os.path.join(d, "cli.npz")])
         cli_s = time.perf_counter() - t0
-        launches = {name: wrapper.launches for name, wrapper in KERNELS.items()}
-        substeps = env.env.decimation * env.env.subiters
-        expect = {"fused_step_kernel": substeps * cfg.rollout_len,
-                  "fk_spheres_kernel": substeps * cfg.rollout_len, "fk_full_kernel": 0}
-        if launches != expect:
-            raise AssertionError(f"train_locomotion: launches {launches}, expected {expect}")
+        launches = read_counts()
+        check_counts("train_locomotion", launches, env.env, cfg.rollout_len)
         cli_policy = load_body_policy(out, device="cuda")
         with torch.no_grad():
             act = cli_policy(obs)
@@ -793,6 +857,286 @@ def phase_locomotion(smi):
         f"actor (bound 1e-5); train_locomotion.main, {LOCO_ENVS} envs, one update: "
         f"{cli_s:.2f} s with the env's build and reset, launches {launches}; on {smi}")
     adapter_steps(smi)
+    return total
+
+
+def with_camera(base):
+    """A task's config with the depth and RGB camera on."""
+    class Cfg(base):
+        class obs(base.obs):
+            class cfgs(base.obs.cfgs):
+                depth_image = True
+                rgb_image = True
+
+    return Cfg
+
+
+class CurrCfg(Go1Cfg):
+    """One robot an env on LegacyTerrainBuilder's own grid (10 rows x 20
+    columns of 8 m tiles) at Go1Cfg's 0.025 m cells, the curriculum on, the
+    depth camera on."""
+
+    class env(Go1Cfg.env):
+        num_agents = 1
+        num_npcs = 0
+
+    class terrain(Go1Cfg.terrain):
+        mesh_type = "heightfield"
+        selected = "Legacy"
+        curriculum = True
+        num_rows = 10
+        num_cols = 20
+        terrain_length = 8.0
+        terrain_width = 8.0
+
+    class obs(Go1Cfg.obs):
+        class cfgs(Go1Cfg.obs.cfgs):
+            depth_image = True
+
+
+def compare_images(label, ob_c, ob_h):
+    parts = []
+    for name, a, b, tol in (("depth", ob_c.depth_image, ob_h.depth_image, DEPTH_TOL),
+                            ("rgb", ob_c.rgb_image, ob_h.rgb_image, RGB_TOL)):
+        if b is None:
+            continue
+        if tuple(a.shape) != tuple(b.shape) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label} {name}: shape {tuple(a.shape)} vs {tuple(b.shape)} "
+                                 "or non-finite")
+        d = float((a.cpu() - b).abs().max())
+        parts.append(f"{name} {tuple(a.shape)} max diff {d:.3e} (bound {tol:.0e})")
+        if not d <= tol:
+            raise AssertionError(f"{label} {name}: card vs CPU {d:.3e} > {tol:.0e}")
+    say("camera", f"{label}, images card vs CPU: " + "; ".join(parts))
+
+
+def timed_steps(env, state, cmds, steps):
+    """1 warm and `steps` timed Go1Env steps; the kernels' counts set to 0
+    before the warm step. Returns (state, obs, done, seconds, launches)."""
+    reset_counts()
+    state, obs, done, _ = env.step(state, cmds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, obs, done, _ = env.step(state, cmds)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    check_counts(f"{type(env).__name__} {steps + 1} steps", launches, env, steps + 1)
+    return state, obs, done, dt, launches
+
+
+def phase_curriculum(smi):
+    """The curriculum on a Legacy heightfield with the depth camera. Returns
+    the launches of its runs at SLICE_ENVS envs."""
+    from dataclasses import replace
+
+    # card vs CPU at 4 envs on level 0 (flat and rough tiles of the first
+    # four columns), the same draws
+    E = 4
+    env_c = Go1Env(CurrCfg, num_envs=E, seed=0, device="cuda")
+    env_h = Go1Env(CurrCfg, num_envs=E, seed=0, device="cpu")
+    zeros = torch.zeros(E, dtype=torch.int32, device="cuda")
+    st_c = env_c._reset_all(env_c.draws(), zeros)
+    st_h = env_state_to(st_c, "cpu")
+    cmds = np.random.RandomState(5).uniform(-1, 1, (E, 1, 3)).astype(np.float32)
+    fresh = env_c._reset_all(env_c.draws(), zeros)
+    lv = np.zeros(E, dtype=np.int64)
+    out_c, ob_c, done_c, _ = env_c.step(st_c, torch.as_tensor(cmds, device="cuda"),
+                                         env_c.draws({"fresh": fresh, "curr_level": lv}))
+    out_h, ob_h, done_h, _ = env_h.step(st_h, torch.as_tensor(cmds), env_h.draws(
+        {"fresh": env_state_to(fresh, "cpu"), "curr_level": lv}))
+    if bool(done_h.any()) or not torch.equal(out_c.terrain_levels.cpu(), out_h.terrain_levels):
+        raise AssertionError(f"curriculum check: done {done_h.tolist()}, levels "
+                             f"{out_c.terrain_levels.tolist()} / {out_h.terrain_levels.tolist()}")
+    worst = {}
+    for n in NAMES:
+        worst[n] = float((getattr(out_c.phys.agents, n).cpu() - getattr(out_h.phys.agents, n))
+                         .abs().max())
+        if not worst[n] <= CHECK_TOLS[n]:
+            raise AssertionError(f"curriculum check {n}: card vs CPU {worst[n]:.3e} > "
+                                 f"{CHECK_TOLS[n]:.0e}")
+    say("curriculum", f"Legacy heightfield {E} envs on level 0, card vs CPU after one step: "
+        + ", ".join(f"{n} {v:.3e}" for n, v in worst.items()))
+    compare_images(f"curriculum {E} envs", ob_c, ob_h)
+
+    t0 = time.perf_counter()
+    env = Go1Env(CurrCfg, num_envs=SLICE_ENVS, seed=0, device="cuda")
+    state, obs = env.reset()
+    torch.cuda.synchronize()
+    hf = env.terrain.height
+    say("curriculum", f"{SLICE_ENVS} envs built and reset in {time.perf_counter() - t0:.2f} s: "
+        f"heightfield {tuple(hf.shape)} ({hf.numel() * hf.element_size() / 1e6:.1f} MB on the "
+        f"card), {env.num_levels} levels, curr_up_dist {env.curr_up_dist} m, depth "
+        f"{tuple(obs.depth_image.shape)}")
+    cmds = torch.as_tensor(np.random.RandomState(1).uniform(-1, 1, (SLICE_ENVS, 1, 3))
+                           .astype(np.float32), device="cuda")
+    state, obs, done, dt, launches = timed_steps(env, state, cmds, CURR_STEPS)
+    d = obs.depth_image
+    if not bool(torch.isfinite(d).all()) or tuple(d.shape) != (SLICE_ENVS, 1, 16, 16):
+        raise AssertionError(f"curriculum depth: shape {tuple(d.shape)} or non-finite")
+    say("curriculum", f"{CURR_STEPS} steps in {dt:.3f} s: {dt / CURR_STEPS * 1e3:.2f} ms/step, "
+        f"{SLICE_ENVS * CURR_STEPS / dt:.1f} env-steps/s, launches {launches} in "
+        f"{CURR_STEPS + 1} steps, resets {int(done.sum())} in the last step; on {smi}")
+    total = dict(launches)
+    # promotion: the robots past half the track, every episode at its end
+    lv0 = state.terrain_levels.clone()
+    ag = state.phys.agents
+    pos = ag.pos.clone()
+    pos[..., 0] += env.curr_up_dist + 1.0
+    state = replace(state, phys=replace(state.phys, agents=replace(ag, pos=pos)),
+                    episode_length=torch.full_like(state.episode_length, env.max_episode_length))
+    reset_counts()
+    state, _, done, _ = env.step(state, torch.zeros_like(cmds))
+    launches = read_counts()
+    check_counts("curriculum promotion step", launches, env, 1)
+    add_counts(total, launches)
+    lv1 = state.terrain_levels
+    top = lv0 == env.num_levels - 1
+    rose = bool(done.all()) and bool((lv1[~top] == lv0[~top] + 1).all())
+    if not rose or not bool(((lv1 >= 0) & (lv1 < env.num_levels)).all()):
+        raise AssertionError("curriculum: the levels did not rise")
+    say("curriculum", f"promotion step: mean level {float(lv0.float().mean()):.3f} -> "
+        f"{float(lv1.float().mean()):.3f}, {int(top.sum())} envs past the last level took a random "
+        f"level; on {smi}")
+    return total
+
+
+def phase_camera(smi):
+    """The onboard cameras. Returns the launches of the timed runs with the
+    camera."""
+    for task in CAMERA_TASKS:
+        cfg = with_camera(ENV_DICT[task]["config"])
+        wrap_c, _ = make_mqe_env(task, num_envs=2, seed=0, device="cuda", custom_cfg=lambda c: cfg)
+        wrap_h, _ = make_mqe_env(task, num_envs=2, seed=0, device="cpu", custom_cfg=lambda c: cfg)
+        ts_c, _ = wrap_c.reset()
+        compare_images(f"{task} 2 envs", wrap_c.env._observations(ts_c.env),
+                       wrap_h.env._observations(env_state_to(ts_c.env, "cpu")))
+    total = {name: 0 for name in KERNELS}
+    for task, steps in CAMERA_TASKS.items():
+        ms = {}
+        for label, cfg in (("camera", with_camera(ENV_DICT[task]["config"])),
+                           ("no camera", ENV_DICT[task]["config"])):
+            env = Go1Env(cfg, num_envs=SLICE_ENVS, seed=0, device="cuda")
+            state, _ = env.reset()
+            cmds = torch.as_tensor(np.random.RandomState(1).uniform(
+                -1, 1, (SLICE_ENVS, env.num_agents, 3)).astype(np.float32), device="cuda")
+            state, obs, _, dt, launches = timed_steps(env, state, cmds, steps)
+            ms[label] = dt / steps * 1e3
+            if label == "camera":
+                add_counts(total, launches)
+                cams, rays = SLICE_ENVS * env.num_agents, env.cam_rays.shape[0]
+                for name, img in (("depth", obs.depth_image), ("rgb", obs.rgb_image)):
+                    if (not bool(torch.isfinite(img).all())
+                            or tuple(img.shape[:2]) != (SLICE_ENVS, env.num_agents)):
+                        raise AssertionError(f"camera {task} {name}: {tuple(img.shape)}")
+                seen = float((obs.depth_image < env.cam_far).float().mean())
+        say("camera", f"{task} {SLICE_ENVS} envs ({cams} cameras of {rays} rays): "
+            f"{ms['camera']:.2f} ms/step with depth + RGB, {ms['no camera']:.2f} ms/step without "
+            f"(+{ms['camera'] - ms['no camera']:.2f} ms), {steps} timed steps each, "
+            f"{100 * seen:.1f} % of pixels nearer than far; on {smi}")
+    return total
+
+
+def mpc_cycles(mpc, state, ms, cycles, gen):
+    """1 warm and `cycles` timed MPC cycles; the kernels' counts set to 0
+    before the warm cycle and checked after. Returns (state, ms, seconds,
+    launches)."""
+    reset_counts()
+    state, ms, _, _ = mpc.plan_step(state, ms, Draws(gen))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(cycles):
+        state, ms, done, cost = mpc.plan_step(state, ms, Draws(gen))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    check_counts(f"MPC {mpc.task} {cycles + 1} cycles", launches, mpc.env,
+                 (cycles + 1) * mpc.steps_per_knot)
+    if not bool(torch.isfinite(cost).all()):
+        raise AssertionError(f"MPC {mpc.task}: non-finite cost")
+    return state, ms, dt, launches
+
+
+def phase_mpc(smi):
+    """Command-space MPC on the card. Returns the launches of its env steps."""
+    total = {name: 0 for name in KERNELS}
+    # card vs CPU: one solve at 2 envs from the same x0, warm start and args
+    sols = {}
+    rng = np.random.RandomState(3)
+    for dev in ("cuda", "cpu"):
+        wrap, _ = make_mqe_env("go1gate", num_envs=2, seed=0, device=dev)
+        if dev == "cuda":
+            ts, _ = wrap.reset()
+            st = ts.env
+            us0 = rng.uniform(-0.3, 0.3, (2, 20, 6)).astype(np.float32)
+        mpc = CommandMPC(wrap, task="gate")
+        s = st if dev == "cuda" else env_state_to(st, "cpu")
+        sol = mpc.solve(planner_state(mpc.env, s).reshape(2, -1), torch.as_tensor(us0, device=dev),
+                        mpc.default_args(s))
+        sols[dev] = sol
+    rel = float((sols["cuda"].cost.cpu() - sols["cpu"].cost).abs().max()
+                / sols["cpu"].cost.abs().max())
+    dus = float((sols["cuda"].us.cpu() - sols["cpu"].us).abs().max())
+    say("mpc", f"one gate solve at 2 envs card vs CPU: cost {sols['cuda'].cost.tolist()} / "
+        f"{sols['cpu'].cost.tolist()}, rel {rel:.3e} (bound {MPC_COST_REL:.0e}), plans' max diff "
+        f"{dus:.3e}")
+    if not rel <= MPC_COST_REL:
+        raise AssertionError(f"MPC solve card vs CPU: cost rel {rel:.3e} > {MPC_COST_REL:.0e}")
+
+    wrap, _ = make_mqe_env("go1gate", num_envs=SLICE_ENVS, seed=0, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    model = fit_command_model(wrap, n_steps=80)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    check_counts("fit_command_model 80 steps", launches, wrap.env, 80)
+    add_counts(total, launches)
+    say("mpc", f"fit_command_model on go1gate, {SLICE_ENVS} envs, 80 steps: {fit_s:.2f} s, "
+        f"tau_v {model.tau_v:.4f} s, tau_w {model.tau_w:.4f} s, gain_v {model.gain_v:.4f}, "
+        f"gain_w {model.gain_w:.4f}; launches {launches}; on {smi}")
+    for task, mtask, cycles, mdl in (("go1gate", "gate", MPC_CYCLES, model),
+                                     ("go1pushbox", "pushbox", PUSHBOX_CYCLES, None)):
+        w = wrap if task == "go1gate" else make_mqe_env(task, num_envs=SLICE_ENVS, seed=0,
+                                                         device="cuda")[0]
+        mpc = CommandMPC(w, task=mtask, model=mdl)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state, _ = mpc.env.reset(Draws(gen))
+        x0 = float(planner_state(mpc.env, state)[..., 0].mean())
+        ms = mpc.init_mpc_state()
+        state, ms, dt, launches = mpc_cycles(mpc, state, ms, cycles, gen)
+        add_counts(total, launches)
+        x1 = float(planner_state(mpc.env, state)[..., 0].mean())
+        # the solve alone, from the last state and warm start
+        args = mpc.default_args(state)
+        xs0 = planner_state(mpc.env, state).reshape(SLICE_ENVS, -1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MPC_SOLVES):
+            sol = mpc.solve(xs0, ms.us, args)
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) / MPC_SOLVES * 1e3
+        cycle_ms = dt / cycles * 1e3
+        say("mpc", f"CommandMPC {mtask} on {task}, {SLICE_ENVS} envs (H {mpc.cfg.horizon}, "
+            f"{mpc.cfg.n_iters} iterations, {mpc.steps_per_knot} env steps a cycle): "
+            f"{cycle_ms:.2f} ms/cycle over {cycles} cycles, {solve_ms:.2f} ms/solve "
+            f"({MPC_SOLVES} alone), {SLICE_ENVS * cycles / dt:.1f} solves/s, mean x progress "
+            f"{x1 - x0:.4f} m, mean cost {float(sol.cost.mean()):.3f}; launches {launches}; "
+            f"on {smi}")
+        if task == "go1gate" and not x1 - x0 > 0.1:
+            raise AssertionError(f"MPC gate: mean x progress {x1 - x0:.4f} m after {cycles} cycles")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_mpc.main(["--task", "go1gate", "--num-envs", str(SLICE_ENVS), "--cycles", "5"])
+    cli_s = time.perf_counter() - t0
+    launches = read_counts()
+    check_counts("run_mpc.main", launches, wrap.env, 6 * 5)
+    add_counts(total, launches)
+    if not (np.isfinite(out["mean_x_progress_m"]) and out["solves_per_s"] > 0):
+        raise AssertionError(f"run_mpc: {out}")
+    say("mpc", f"run_mpc.main --num-envs {SLICE_ENVS} --cycles 5: {out} in {cli_s:.2f} s with "
+        f"the build; launches {launches}; on {smi}")
     return total
 
 
@@ -824,9 +1168,13 @@ def main():
         entry["ptxas"] = ptxas[entry["name"]]
     for task in ENV_DICT:
         phase_check(task)
+    phase_check("go1wrestling", draw=2)
     by_task = {task: phase_slice(smi, task, steps=steps) for task, steps in SLICES.items()}
     by_task["train"] = phase_train(smi)
     by_task["locomotion"] = phase_locomotion(smi)
+    by_task["curriculum"] = phase_curriculum(smi)
+    by_task["camera"] = phase_camera(smi)
+    by_task["mpc"] = phase_mpc(smi)
     for entry in entries:
         entry["launches"] = sum(counts[entry["name"]] for counts in by_task.values())
         entry["launches_by_task"] = {t: counts[entry["name"]] for t, counts in by_task.items()}

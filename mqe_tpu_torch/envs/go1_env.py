@@ -3,13 +3,14 @@
 Counterpart of `mqe_tpu/envs/go1_env.py` for every task of the registry:
 passive NPCs (box, seesaw, ball, hinged doors and discs), static fixtures
 (the wrestling ring, the bridge), the scripted football defender and the
-sheep's flee script. Cameras and the terrain curriculum are not ported yet
-(`_unsupported`). One control step runs the command -> locomotion (trot
-controller + learned residual, or the `policy` backend's body policy) ->
-actuator net -> torque chain, `decimation` x `subiters` physics substeps, the
-NPC script, termination, a masked auto-reset (`torch.where`, no indexed
-writes) and the observations. The JAX package's two `lax.scan`s are Python
-loops here.
+sheep's flee script; the onboard depth/RGB camera (render/onboard.py) and
+the runtime terrain curriculum on a heightfield of several rows. One control
+step runs the command -> locomotion (trot controller + learned residual, or
+the `policy` backend's body policy) -> actuator net -> torque chain,
+`decimation` x `subiters` physics substeps, the NPC script, termination, the
+curriculum's promotion and demotion, a masked auto-reset (`torch.where`, no
+indexed writes) and the observations. The JAX package's two `lax.scan`s are
+Python loops here.
 
 State is a dataclass of tensors with a leading env axis; the env object holds
 only what is fixed at construction (models, terrain, nets, config values).
@@ -34,6 +35,7 @@ from mqe_tpu_torch.ops import quat as quat_ops
 from mqe_tpu_torch.physics import contact as C
 from mqe_tpu_torch.physics import scene as S
 from mqe_tpu_torch.physics.model import load_model, load_static_geoms
+from mqe_tpu_torch.render import onboard
 from mqe_tpu_torch.terrain import get_terrain_builder, plane_terrain
 from mqe_tpu_torch.utils.random import Draws
 from mqe_tpu_torch.utils.tree import tree_map
@@ -55,6 +57,10 @@ class ObsBuf:
     last_action: torch.Tensor       # (E, A, 12) locomotion-level
     last_last_action: torch.Tensor  # (E, A, 12)
     env_info: dict                  # oracle terrain info, e.g. gate_deviation (E, 2)
+    # onboard forward camera (ref legged_robot_field.py:23-93); None unless
+    # cfg.obs.cfgs.depth_image / rgb_image are on
+    depth_image: torch.Tensor | None = None  # (E, A, H, W) meters in [0, far]
+    rgb_image: torch.Tensor | None = None    # (E, A, H, W, 3) in [0, 1]
 
 
 @dataclass
@@ -74,19 +80,10 @@ class EnvState:
     vel_int: torch.Tensor           # (E, A, 3) velocity-error integrator (trot)
     push_timer: torch.Tensor        # (E,) int32
     done: torch.Tensor              # (E,) bool last-step termination
-    terrain_levels: torch.Tensor    # (E,) int32 terrain row
+    terrain_levels: torch.Tensor    # (E,) int32 curriculum row (static if off)
     collide: torch.Tensor           # (E,) bool termination-contact flag
     r_term: torch.Tensor            # (E,) roll termination flag
     p_term: torch.Tensor            # (E,) pitch termination flag
-
-
-def _unsupported(cfg):
-    """What of a task config the port does not run yet, with its ROADMAP item."""
-    out = []
-    oc = cfg.obs.cfgs
-    if getattr(oc, "depth_image", False) or getattr(oc, "rgb_image", False):
-        out.append("onboard cameras (ROADMAP Queue A item 14)")
-    return out
 
 
 class Go1Env:
@@ -96,10 +93,6 @@ class Go1Env:
     """
 
     def __init__(self, cfg, num_envs: int | None = None, seed: int = 0, device=None):
-        missing = _unsupported(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.env.env_name}: not ported yet: " + "; ".join(missing))
         self.cfg = cfg
         self.device = torch.device(device if device is not None else default_device())
         dev = self.device
@@ -145,22 +138,34 @@ class Go1Env:
         rows = rng.integers(0, R, size=E)
         cols = np.arange(E) % Cc
         self.env_rows = rows
-        # the JAX package runs the terrain curriculum only on a terrain of
-        # more than one row; with one row it builds with the curriculum off
+        # runtime terrain curriculum (ref _update_terrain_curriculum
+        # legged_robot.py:479-503): the env's row is state, promoted or
+        # demoted on each episode's outcome. The JAX package runs it only on
+        # a terrain of more than one row; off, every origin lookup is static
         self.curriculum = (
             bool(getattr(cfg.terrain, "curriculum", False))
             and cfg.terrain.mesh_type != "plane"
             and R > 1
         )
-        if self.curriculum:
-            raise NotImplementedError(f"{cfg.env.env_name}: not ported yet: the terrain "
-                                      "curriculum (ROADMAP Queue A item 10)")
         t = lambda x: torch.as_tensor(np.asarray(x), device=dev)
         self.env_origins = t(self.build.env_origins[rows, cols])       # (E, 3)
         self.agent_origins = t(self.build.agent_origins[rows, cols])   # (E, A, 3)
         env_boxes = self.build.boxes[rows, cols]                       # (E, B, 7)
-        # trim the box budget to what this task uses
-        nbox_used = int((env_boxes[..., 6] > 0).any(axis=0).sum())
+        # trim the box budget to what this task uses: under the curriculum
+        # what any row uses, since an env may move to any row
+        if self.curriculum:
+            nbox_used = int((self.build.boxes[..., 6] > 0).any(axis=(0, 1)).sum())
+            self.grid_env_origins = t(self.build.env_origins)          # (R, C, 3)
+            self.grid_agent_origins = t(self.build.agent_origins)      # (R, C, A, 3)
+            self.grid_boxes = t(self.build.boxes[:, :, :nbox_used])    # (R, C, B, 7)
+            self.grid_env_info = {k: t(v) for k, v in self.build.env_info.items()}
+            self.env_cols_j = torch.as_tensor(cols, device=dev)
+            self.num_levels = R
+            # promote when the farthest agent crossed half the track
+            # (ref _get_terrain_curriculum_move legged_robot.py:496-503)
+            self.curr_up_dist = float(self.build.track_length) / 2.0
+        else:
+            nbox_used = int((env_boxes[..., 6] > 0).any(axis=0).sum())
         self.env_boxes = t(env_boxes[:, :nbox_used])
         self.env_info = {k: t(v[rows, cols]) for k, v in self.build.env_info.items()}
 
@@ -301,6 +306,33 @@ class Go1Env:
             bt = cfg.terrain.BarrierTrack_kwargs
             off = [bt["init"]["block_length"] + bt["plane"]["block_length"], 0.0, 0.0]
             self.defender_gate = self.env_origins + t(np.asarray(off, dtype=np.float32))
+
+        # ---- onboard forward camera (ref legged_robot_field.py:23-93) ----
+        oc = cfg.obs.cfgs
+        self.cam_depth = bool(getattr(oc, "depth_image", False))
+        self.cam_rgb = bool(getattr(oc, "rgb_image", False))
+        self.cam_rays = None
+        if self.cam_depth or self.cam_rgb:
+            fc = cfg.sensor.forward_camera
+            self.cam_res = tuple(fc.resolution)
+            rays = onboard.camera_rays(self.cam_res, fc.horizontal_fov)
+            self.cam_rays = t(rays.reshape(-1, 3))                      # (R, 3)
+            self.cam_offset = t(np.asarray(fc.position, dtype=np.float32))
+            # ZYX euler -> rotation matrix (camera mount in base frame,
+            # ref Quat.from_euler_zyx at legged_robot_field.py:85)
+            r_, p_, y_ = fc.rotation
+            Rz = np.array([[np.cos(y_), -np.sin(y_), 0], [np.sin(y_), np.cos(y_), 0], [0, 0, 1]])
+            Ry = np.array([[np.cos(p_), 0, np.sin(p_)], [0, 1, 0], [-np.sin(p_), 0, np.cos(p_)]])
+            Rx = np.array([[1, 0, 0], [0, np.cos(r_), -np.sin(r_)], [0, np.sin(r_), np.cos(r_)]])
+            self.cam_rot = t((Rz @ Ry @ Rx).astype(np.float32))
+            self.cam_far = float(fc.far)
+            # sphere-impostor radii for the other actors seen by the camera
+            self.cam_agent_radius = 0.3
+            if self.npc is not None and len(self.npc.sph_tags) > 0:
+                self.cam_npc_radius = float(np.max(self.npc.sph_radius))
+            else:
+                self.cam_npc_radius = 0.25
+
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
 
@@ -373,16 +405,36 @@ class Go1Env:
         dr = S.DomainRand(mu_scale=mu, payload=payload, com_shift=com_shift, motor_strength=motor)
         return agents, npcs, dr
 
-    def _reset_all(self, draws: Draws) -> EnvState:
+    def _origins_for(self, levels):
+        """(env_origins (E, 3), agent_origins (E, A, 3)): static when the
+        curriculum is off, gathered by terrain level when on."""
+        if self.curriculum:
+            lv = levels.to(torch.int64)
+            return (self.grid_env_origins[lv, self.env_cols_j],
+                    self.grid_agent_origins[lv, self.env_cols_j])
+        return self.env_origins, self.agent_origins
+
+    def _terrain_for(self, levels) -> S.Terrain:
+        """The contact's terrain: each env's wall boxes of its level under
+        the curriculum, else the static ones."""
+        if self.curriculum:
+            return replace(self.terrain,
+                           boxes=self.grid_boxes[levels.to(torch.int64), self.env_cols_j])
+        return self.terrain
+
+    def _reset_all(self, draws: Draws, levels=None) -> EnvState:
         E, A, dev = self.num_envs, self.num_agents, self.device
+        if levels is None:
+            levels = torch.as_tensor(self.env_rows, dtype=torch.int32, device=dev)
         agents, npcs, dr = self._fresh_env_state(draws)
         # spawn = init-state pos + terrain agent origin (xy only); NPCs are
         # placed from the env origin
-        ao = self.agent_origins.clone()
+        eo, ao = self._origins_for(levels)
+        ao = ao.clone()
         ao[..., 2] = 0.0
         agents = replace(agents, pos=agents.pos + ao)
         if self.num_npcs > 0:
-            eo = self.env_origins.clone()
+            eo = eo.clone()
             eo[:, 2] = 0.0
             npcs = replace(npcs, pos=npcs.pos + eo[:, None, :])
         z = lambda *s: torch.zeros(s, device=dev)
@@ -404,7 +456,7 @@ class Go1Env:
             vel_int=z(E, A, 3),
             push_timer=zi(E),
             done=zb(E),
-            terrain_levels=torch.as_tensor(self.env_rows, dtype=torch.int32, device=dev),
+            terrain_levels=levels,
             collide=zb(E),
             r_term=zb(E),
             p_term=zb(E),
@@ -568,9 +620,10 @@ class Go1Env:
     def _physics(self, state: EnvState, tau):
         """One decimation substep: `subiters` scene substeps over the env batch."""
         phys = state.phys
+        terrain = self._terrain_for(state.terrain_levels)
         for _ in range(self.subiters):
             phys, contacts = S.substep_batch(
-                self.scene, self.terrain, phys, tau, state.dr, self.sim_dt / self.subiters)
+                self.scene, terrain, phys, tau, state.dr, self.sim_dt / self.subiters)
         return phys, contacts
 
     def _termination(self, state: EnvState, contacts):
@@ -589,7 +642,7 @@ class Go1Env:
         reset = collide
 
         r, p, _ = quat_ops.get_euler_xyz_wrapped(ag.quat)
-        z_rel = ag.pos[..., 2] - self.agent_origins[..., 2]
+        z_rel = ag.pos[..., 2] - self._origins_for(state.terrain_levels)[1][..., 2]
         terms = cfg.termination.termination_terms
         r_term = torch.zeros(E, dtype=torch.bool, device=dev)
         p_term = torch.zeros(E, dtype=torch.bool, device=dev)
@@ -609,10 +662,19 @@ class Go1Env:
     def _observations(self, state: EnvState) -> ObsBuf:
         sc = self.cfg.normalization.obs_scales
         ag = state.phys.agents
+        origins = self._origins_for(state.terrain_levels)[0][:, None, :]  # (E, 1, 3)
         r, p, y = quat_ops.get_euler_xyz(ag.quat)
         down = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand(ag.quat.shape[:-1] + (3,))
+        depth_img = rgb_img = None
+        if self.cam_rays is not None:
+            depth_img, rgb_img = self._render_cameras(state)
+        if self.curriculum:
+            lv = state.terrain_levels.to(torch.int64)
+            env_info = {k: v[lv, self.env_cols_j] for k, v in self.grid_env_info.items()}
+        else:
+            env_info = self.env_info
         return ObsBuf(
-            base_pos=ag.pos - self.env_origins[:, None, :],
+            base_pos=ag.pos - origins,
             base_quat=ag.quat,
             base_rpy=torch.stack([r, p, y], dim=-1),
             lin_vel=quat_ops.quat_rotate_inverse(ag.quat, ag.lin_vel) * sc.lin_vel,
@@ -623,8 +685,52 @@ class Go1Env:
             clock_inputs=state.clock_inputs,
             last_action=state.last_loco_action,
             last_last_action=state.last2_loco_action,
-            env_info=self.env_info,
+            env_info=env_info,
+            depth_image=depth_img,
+            rgb_image=rgb_img,
         )
+
+    def _render_cameras(self, state: EnvState):
+        """Every robot's onboard depth/RGB image, all cameras in one batch
+        (ref onboard camera sensors, legged_robot_field.py:23-93). The other
+        actors are sphere impostors at their roots; each camera masks out
+        its own robot. Returns (E, A, H, W) depth and (E, A, H, W, 3) RGB,
+        each None when off."""
+        ag = state.phys.agents
+        E, A, N = self.num_envs, self.num_agents, self.num_npcs
+        H, W = self.cam_res
+        dev = self.device
+        Rb = quat_ops.quat_to_matrix(ag.quat)                      # (E, A, 3, 3)
+        cam_o = ag.pos + torch.einsum("eaij,j->eai", Rb, self.cam_offset)
+        d_world = torch.einsum("eaij,rj->eari", Rb @ self.cam_rot, self.cam_rays)  # (E, A, R, 3)
+
+        # sphere impostors: every agent and every NPC root
+        cent = ag.pos                                              # (E, A, 3)
+        rad = torch.full((E, A), self.cam_agent_radius, device=dev)
+        if N > 0:
+            cent = torch.cat([cent, state.phys.npcs.pos], dim=1)
+            rad = torch.cat([rad, torch.full((E, N), self.cam_npc_radius, device=dev)], dim=1)
+        valid = torch.ones((A, A + N), device=dev)
+        valid[:, :A] -= torch.eye(A, device=dev)                   # (A, M): not its own robot
+        spheres = torch.cat([cent[:, None].expand(E, A, A + N, 3),
+                             rad[:, None, :, None].expand(E, A, A + N, 1),
+                             valid[None, :, :, None].expand(E, A, A + N, 1)], dim=-1)  # (E, A, M, 5)
+
+        boxes = self._terrain_for(state.terrain_levels).boxes      # (E, B, 7)
+        sg = self.static_geoms
+        if sg.shape[1]:
+            # the fixture's rows as boxes, a cylinder's row invalid
+            sg_boxes = torch.cat(
+                [sg[:, :, 1:7], ((sg[:, :, 0] == S.SG_BOX) * sg[:, :, 7])[..., None]], dim=-1)
+            boxes = torch.cat([boxes, sg_boxes], dim=1)
+
+        depth, rgb = onboard.render(
+            cam_o, d_world, boxes[:, None], spheres, self.cam_far,
+            flat_height=self.scene.flat_height, hf=self.terrain.height,
+            hf_origin=self.terrain.origin, hf_scale=self.terrain.scale, rgb=self.cam_rgb)
+        depth_img = depth.reshape(E, A, H, W) if self.cam_depth else None
+        rgb_img = rgb.reshape(E, A, H, W, 3) if self.cam_rgb else None
+        return depth_img, rgb_img
 
     def _npc_script(self, state: EnvState, draws: Draws):
         """Scripted NPC dynamics at control rate: the sheep flee the dogs
@@ -745,10 +851,32 @@ class Go1Env:
         return state, (done, collide, r_term, p_term, timeout)
 
     def _step_finish(self, state: EnvState, carry, draws: Draws):
-        """Masked auto-reset + observations (post-reset half)."""
+        """Curriculum + masked auto-reset + observations (post-reset half).
+        Under the curriculum an env that solved the last level takes a
+        random level, the draw named "curr_level"."""
         E = self.num_envs
         done, collide, r_term, p_term, timeout = carry
-        fresh = draws.state("fresh", lambda: self._reset_all(draws))
+
+        # terrain curriculum: promote envs whose farthest agent crossed half
+        # the track, demote envs that covered less than half the commanded
+        # distance (ref _update_terrain_curriculum legged_robot.py:479-503)
+        levels = state.terrain_levels
+        if self.curriculum:
+            eo_cur = self._origins_for(levels)[0]
+            dist = torch.linalg.norm(
+                state.phys.agents.pos[..., :2] - eo_cur[:, None, :2], dim=-1).amax(dim=-1)
+            move_up = dist > self.curr_up_dist
+            cmd_dist = (torch.linalg.norm(state.commands[..., :2], dim=-1).mean(-1)
+                        * (self.max_episode_length * self.dt) * 0.5)
+            move_down = (dist < cmd_dist) & ~move_up
+            new_lv = levels + move_up.to(torch.int32) - move_down.to(torch.int32)
+            # solved the last level -> random level (ref legged_robot.py:491-494)
+            rand_lv = draws.integers("curr_level", (E,), 0, self.num_levels,
+                                     self.device).to(torch.int32)
+            new_lv = torch.where(new_lv >= self.num_levels, rand_lv, torch.clamp(new_lv, min=0))
+            levels = torch.where(done, new_lv, levels)
+
+        fresh = draws.state("fresh", lambda: self._reset_all(draws, levels))
 
         def sel(new, old):
             if new.ndim == 0:
@@ -784,7 +912,7 @@ class Go1Env:
         """One control step. commands: (E, A, 3), or (E, A - 1, 3) where the
         last robot is the scripted defender. A draw named "fresh" in `draws`
         is the reset state that done envs take; "npc_noise" the sheep
-        script's normal draw."""
+        script's normal draw; "curr_level" the curriculum's random level."""
         draws = draws or self.draws()
         state, carry = self._step_pre(state, commands, draws)
         return self._step_finish(state, carry, draws)

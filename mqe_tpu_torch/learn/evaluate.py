@@ -7,8 +7,10 @@ report per-episode returns and the success rate.
 
 `--checkpoint` takes this package's checkpoint or a JAX package TrainState
 file. It runs on the card unless `--cpu` is passed. `--max-steps` bounds the
-loop (default: episodes x the task's episode length). `--video` is not
-ported: the top-down renderer is ROADMAP item 8 (A14).
+loop (default: episodes x the task's episode length). `--video out.gif`
+draws env 0 every second step with the host-side top-down renderer
+(render/topdown.py: matplotlib and PIL, imported only then) and writes the
+frames as a GIF.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ def main(argv=None):
     p.add_argument("--max-steps", type=int, default=None,
                    help="steps at most (default: episodes x the episode length)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--video", default=None, help="output GIF path (env 0): not ported")
+    p.add_argument("--video", default=None, help="output GIF path (env 0)")
     p.add_argument("--json", default=None, help="append one JSON record of the result here")
     p.add_argument("--recurrent", action="store_true",
                    help="checkpoint was trained with --recurrent (GRU policy)")
@@ -42,9 +44,6 @@ def main(argv=None):
     p.add_argument("--stochastic", action="store_true",
                    help="sample actions from the policy instead of acting on the mean")
     args = p.parse_args(argv)
-    if args.video:
-        raise NotImplementedError("--video: the top-down renderer is not ported yet "
-                                  "(ROADMAP item 8, A14)")
 
     from mqe_tpu_torch.envs.registry import make_mqe_env
     from mqe_tpu_torch.learn.networks import ActorCritic, RecurrentActorCritic
@@ -75,10 +74,16 @@ def main(argv=None):
             mean = mean + torch.exp(log_std) * draws.normal("act_noise", mean.shape, device)
         return wrap.rl_prescale(mean), (out[3] if args.recurrent else None)
 
+    frames, renderer = [], None
+    if args.video:
+        from mqe_tpu_torch.render.topdown import TopDownRenderer
+
+        renderer = TopDownRenderer(wrap.env)
+
     ep_returns = np.zeros((E,))
     finished_returns, finished_succ = [], []
     max_steps = args.max_steps or args.episodes * wrap.env.max_episode_length
-    for _ in range(max_steps):
+    for i in range(max_steps):
         draws = Draws(gen)
         if params is not None:
             actions, h = act(obs, h, draws)
@@ -95,6 +100,8 @@ def main(argv=None):
             ep_returns[d] = 0.0
             if "ep_success" in info:  # the per-episode task success flag
                 finished_succ.extend(info["ep_success"].cpu().numpy()[d].tolist())
+        if renderer is not None and i % 2 == 0:
+            frames.append(renderer.render(ts.env, env_idx=0))
         if len(finished_returns) >= args.episodes * E:
             break
 
@@ -109,6 +116,9 @@ def main(argv=None):
     if args.json:
         with open(args.json, "a") as f:
             f.write(json.dumps(rec) + "\n")
+    if renderer is not None and frames:
+        renderer.save_gif(frames, args.video)
+        print(f"wrote {args.video} ({len(frames)} frames)")
     return rec
 
 

@@ -1,10 +1,21 @@
-"""Terrain generators (build-time numpy, uploaded to the device once)."""
-from mqe_tpu_torch.terrain.barrier_track import BarrierTrackBuilder, plane_terrain  # noqa: F401
+"""Terrain generators (build-time numpy, uploaded to the device once).
+
+Registry mirrors the reference's name->class dispatch
+(ref mqe/utils/terrain/__init__.py:3-13), as `mqe_tpu/terrain/__init__.py`.
+"""
+from mqe_tpu_torch.terrain.barrier_track import BarrierTrackBuilder, TerrainBuild, plane_terrain  # noqa: F401
+from mqe_tpu_torch.terrain.perlin import fractal_noise_2d  # noqa: F401
 
 
 def get_terrain_builder(name: str):
     if name == "BarrierTrack":
         return BarrierTrackBuilder
-    raise NotImplementedError(
-        f"terrain builder {name!r} is not ported yet (ROADMAP Queue A item 9)"
-    )
+    if name == "TerrainPerlin":
+        from mqe_tpu_torch.terrain.perlin_terrain import PerlinTerrainBuilder
+
+        return PerlinTerrainBuilder
+    if name in ("Legacy", "heightfield", "trimesh"):
+        from mqe_tpu_torch.terrain.legacy import LegacyTerrainBuilder
+
+        return LegacyTerrainBuilder
+    raise KeyError(f"unknown terrain builder {name}")

@@ -9,8 +9,8 @@ builds as the JAX package does.
   that is neither CPU nor CUDA, and on input of another dtype, shape or
   layout than the kernels take.
 - The terrain curriculum: on a terrain of one row the JAX package builds with
-  it off, and so does the port; with more rows JAX turns it on and the port
-  refuses it. Both envs are built, not stepped.
+  it off, and so does the port; with more rows both turn it on, with the same
+  grid of origins and boxes. Both envs are built, not stepped.
 """
 import numpy as np
 import pytest
@@ -171,13 +171,18 @@ def test_terrain_curriculum_as_the_jax_package_decides(rows):
     jenv = jwrap.env
     assert jenv.curriculum == (rows > 1)
     custom = lambda c: _one_row_or_more(TorchCfg, rows)
-    if rows > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-            make_torch_env("go1gate", num_envs=2, seed=0, device="cpu", custom_cfg=custom)
-        return
     twrap, _ = make_torch_env("go1gate", num_envs=2, seed=0, device="cpu", custom_cfg=custom)
     tenv = twrap.env
-    assert tenv.curriculum is False
+    assert tenv.curriculum == (rows > 1)
+    if rows > 1:
+        # two rows build with the curriculum on, the grid as JAX's
+        assert tenv.num_levels == jenv.num_levels and tenv.curr_up_dist == jenv.curr_up_dist
+        np.testing.assert_array_equal(tenv.grid_env_origins.numpy(),
+                                      np.asarray(jenv.grid_env_origins))
+        np.testing.assert_array_equal(tenv.grid_agent_origins.numpy(),
+                                      np.asarray(jenv.grid_agent_origins))
+        np.testing.assert_array_equal(tenv.grid_boxes.numpy(), np.asarray(jenv.grid_boxes))
+        np.testing.assert_array_equal(tenv.env_cols_j.numpy(), np.asarray(jenv.env_cols_j))
     np.testing.assert_array_equal(tenv.env_origins.numpy(), np.asarray(jenv.env_origins))
     np.testing.assert_array_equal(tenv.agent_origins.numpy(), np.asarray(jenv.agent_origins))
     ts, _ = twrap.reset()

@@ -454,5 +454,10 @@ def test_evaluate_cli_runs_a_jax_checkpoint(tmp_path):
                          "--max-steps", "2", "--cpu", "--json", str(log)])
     assert rec["task"] == "go1bridge" and np.isfinite(rec["mean_return"])
     assert log.read_text().count("\n") == 1
-    with pytest.raises(NotImplementedError, match="item 8"):
-        evaluate.main(["--video", "out.gif", "--cpu"])
+    # --video, refused until the top-down renderer was ported: the GIF of
+    # env 0, a frame every second step
+    gif = tmp_path / "eval.gif"
+    evaluate.main(["--task", "go1bridge", "--checkpoint",
+                   os.path.join(REPO, CHECKPOINTS["go1bridge"][0]), "--num-envs", "2",
+                   "--max-steps", "1", "--cpu", "--video", str(gif)])
+    assert gif.stat().st_size > 0

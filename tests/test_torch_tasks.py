@@ -12,9 +12,10 @@ and the masked reset, against recorded JAX steps; the base wrapper's parts.
   (tests/goldens/torch_go1gate_reset_step.npz, and the "reset-step" case of
   torch_go1pushbox_step.npz).
 - The base wrapper's geometry helpers, sizes, hooks and observation against
-  the JAX package's wrappers, what the port still refuses (cameras; the
-  `policy` backend is held in tests/test_torch_policy.py), and that its
-  registry has the JAX package's task names.
+  the JAX package's wrappers, that a camera config it once refused builds
+  (the camera is held in tests/test_torch_camera.py, the `policy` backend
+  in tests/test_torch_policy.py), and that its registry has the JAX
+  package's task names.
 
 tests/test_torch_football.py, tests/test_torch_fixtures.py and
 tests/test_torch_sheep.py hold the other ten tasks, with the helpers below.
@@ -227,8 +228,12 @@ class _Camera(T.Go1GateCfg):
     (_Camera, "cameras (ROADMAP Queue A item 14)"),
 ], ids=["camera"])
 def test_what_the_port_refuses_names_its_roadmap_item(cfg, item):
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
-        Go1Env(cfg, num_envs=NUM_ENVS, device="cpu")
+    """What the port once refused (`item`) now builds on the CPU: the
+    camera env renders its depth image at reset."""
+    env = Go1Env(cfg, num_envs=NUM_ENVS, device="cpu")
+    assert env.cam_depth and not env.cam_rgb
+    _, ob = env.reset()
+    assert tuple(ob.depth_image.shape) == (NUM_ENVS, 2) + tuple(env.cam_res)
 
 
 def test_tasks_not_ported_name_item_11():

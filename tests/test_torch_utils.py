@@ -91,8 +91,9 @@ def test_tree_map_and_env_state_to():
 
 
 def test_other_tasks_name_their_roadmap_item():
-    """A config the port still refuses, one with an onboard camera, names
-    its ROADMAP item."""
+    """A config the port once refused, go1sheep-easy with an onboard
+    camera, builds and returns depth images of the JAX package's shape
+    (E, A, H, W) and no RGB image (`rgb_image` off)."""
     from mqe_tpu_torch.envs.registry import make_mqe_env
 
     def camera(cfg):
@@ -105,8 +106,14 @@ def test_other_tasks_name_their_roadmap_item():
         obs.cfgs = cfgs
         return type("CameraCfg", (cfg,), {"obs": obs})
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
-        make_mqe_env("go1sheep-easy", num_envs=2, device="cpu", custom_cfg=camera)
+    wrap, _ = make_mqe_env("go1sheep-easy", num_envs=2, device="cpu", custom_cfg=camera)
+    ts, _ = wrap.reset()
+    ob = wrap.env._observations(ts.env)
+    H, W = wrap.env.cfg.sensor.forward_camera.resolution
+    assert tuple(ob.depth_image.shape) == (2, wrap.num_agents, H, W)
+    assert ob.rgb_image is None
+    far = wrap.env.cam_far
+    assert bool(torch.isfinite(ob.depth_image).all()) and float(ob.depth_image.max()) <= far
 
 
 def test_entry_points_default_to_the_card():

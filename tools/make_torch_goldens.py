@@ -99,6 +99,14 @@ The locomotion slice (tests/test_torch_loco_env.py, test_torch_policy.py):
   - torch_go1gate_events_step.npz: go1gate with push, action lag and
     tanh/delta command clipping, and a step where each termination term
     fires (`record_events`).
+
+The terrain, camera and MPC slice (tests/test_torch_terrain.py,
+test_torch_camera.py, test_torch_mpc.py): torch_terrain.npz
+(`record_terrain`: the Legacy and Perlin builds, the curriculum's steps, a
+heightfield step, a step on two rows of go1gate's track), torch_camera.npz
+(`record_camera`: depth and RGB images from recorded states) and
+torch_mpc.npz (`record_mpc`: the iLQR's passes, whole solves with the step
+sizes chosen, and the costs at their hinges' kinks).
 Nothing under mqe_tpu/ is written.
 """
 import os
@@ -973,6 +981,415 @@ def record_loco_ppo_update() -> dict:
     rec["done"] = np.asarray(traj["done"])
     return rec
 
+# ---------------------------------------------------------------------------
+# terrain builders, the curriculum, the cameras, the MPC (torch_terrain.npz,
+# torch_camera.npz, torch_mpc.npz)
+# ---------------------------------------------------------------------------
+
+# Legacy builds: the default proportions (every tile kind but the gap and the
+# flat-noise tile), six proportions (the gap) and a sum below one (the
+# flat-noise tile); 0.1 m cells and 4 m tiles keep the record small
+LEGACY_CASES = {
+    "defaults": dict(num_rows=3, num_cols=10, terrain_length=4.0, terrain_width=4.0,
+                     horizontal_scale=0.1),
+    "gap": dict(num_rows=3, num_cols=5, terrain_length=4.0, terrain_width=4.0,
+                horizontal_scale=0.1, terrain_proportions=[0.1, 0.1, 0.2, 0.2, 0.2, 0.2]),
+    "flat-noise": dict(num_rows=2, num_cols=5, terrain_length=4.0, terrain_width=4.0,
+                       horizontal_scale=0.1, terrain_proportions=[0.2, 0.2, 0.2, 0.2, 0.1]),
+}
+PERLIN_CASES = {
+    "perlin": dict(num_rows=2, num_cols=3, terrain_length=4.0, terrain_width=4.0,
+                   horizontal_scale=0.05, TerrainPerlin_kwargs=dict(zScale=0.12, frequency=10)),
+}
+BUILD_FIELDS = ("height", "origin", "boxes", "env_origins", "agent_origins")
+
+
+def _curr_cfg(base):
+    """tests/test_envs.py::test_terrain_curriculum_levels_progress's config:
+    one robot, 4 envs, a Legacy heightfield of 4 rows x 2 columns of 8 m
+    tiles at Go1Cfg's 0.025 m cells, the curriculum on, 2 s episodes."""
+    class CurrCfg(base):
+        class env(base.env):
+            num_envs = 4
+            num_agents = 1
+            num_npcs = 0
+            episode_length_s = 2.0
+
+        class terrain(base.terrain):
+            mesh_type = "heightfield"
+            selected = "Legacy"
+            curriculum = True
+            num_rows = 4
+            num_cols = 2
+            terrain_length = 8.0
+            terrain_width = 8.0
+
+    return CurrCfg
+
+
+def _gate_rows_cfg(base, camera=False, perlin=False, rows=2):
+    """A task's config with `rows` rows of its track and the curriculum on
+    (rows None: the task's own terrain), the onboard depth and RGB camera,
+    or perlin ground noise."""
+    class Cfg(base):
+        class terrain(base.terrain):
+            if rows is not None:
+                num_rows = rows
+                curriculum = True
+            BarrierTrack_kwargs = dict(base.terrain.BarrierTrack_kwargs,
+                                       add_perlin_noise=perlin)
+
+        class obs(base.obs):
+            class cfgs(base.obs.cfgs):
+                depth_image = camera
+                rgb_image = camera
+
+    return Cfg
+
+
+def _step_record(rec, prefix, env, state, cmds, key):
+    """One Go1Env step of `state` under `cmds` with `key`: the start, the
+    draws the port takes by name ("fresh", the reset state the step drew
+    for the levels it chose; "curr_level", the curriculum's random level),
+    the step's state, observation base_pos and done."""
+    import jax.numpy as jnp
+
+    _, _, k_reset, k_lv = jax.random.split(key, 4)
+    out, obs, done, _ = env.step(state, jnp.asarray(cmds), key)
+    rec.update(_flat(f"{prefix}/start", state))
+    rec.update(_flat(f"{prefix}/out", out))
+    rec.update(_flat(f"{prefix}/fresh", env._reset_all(k_reset, out.terrain_levels)))
+    rec[f"{prefix}/curr_level"] = np.asarray(
+        jax.random.randint(k_lv, (env.num_envs,), 0, getattr(env, "num_levels", 1)))
+    rec[f"{prefix}/commands"] = np.asarray(cmds)
+    rec[f"{prefix}/base_pos"] = np.asarray(obs.base_pos)
+    rec[f"{prefix}/done"] = np.asarray(done)
+    return out
+
+
+def record_terrain() -> dict:
+    """torch_terrain.npz:
+      - "legacy/<case>/<field>", "perlin/<case>/<field>": the builds of
+        `LEGACY_CASES` (seed 3) and `PERLIN_CASES` (seed 1);
+      - "curr/step1", "curr/step2": the two steps of
+        test_terrain_curriculum_levels_progress (`_curr_cfg`): from the reset
+        of PRNGKey(0) with the robots moved past curr_up_dist and every
+        episode at its end (key PRNGKey(1)); then from that step's state at
+        its end with commands of ones (key PRNGKey(2)); `_step_record`;
+      - "hf/step": a step on that heightfield within an episode: from the
+        reset of PRNGKey(3) after 10 steps of 0.5 forward (keys split from
+        PRNGKey(4)), key PRNGKey(5);
+      - "gate-rows/step": go1gate on two rows with the curriculum on
+        (`_gate_rows_cfg`), reset with PRNGKey(0) onto the other row of each
+        env, 10 steps of commands drawn from RandomState(3), then a step
+        with key PRNGKey(7); "gate-rows/grid_env_origins" and
+        "gate-rows/env_rows".
+    """
+    from mqe_tpu.envs.config import Go1Cfg
+    from mqe_tpu.envs.go1_env import Go1Env
+    from mqe_tpu.envs.tasks import Go1GateCfg
+    from mqe_tpu.terrain import get_terrain_builder
+
+    import jax.numpy as jnp
+
+    rec = {}
+    for kind, cases, seed in (("legacy", LEGACY_CASES, 3), ("perlin", PERLIN_CASES, 1)):
+        name = "Legacy" if kind == "legacy" else "TerrainPerlin"
+        for case, cfg in cases.items():
+            b = get_terrain_builder(name)(cfg, 2).build(seed=seed)
+            for f in BUILD_FIELDS:
+                rec[f"{kind}/{case}/{f}"] = np.asarray(getattr(b, f))
+
+    env = Go1Env(_curr_cfg(Go1Cfg), num_envs=4, seed=0)
+    state = env._reset_all(jax.random.PRNGKey(0))
+    ag = state.phys.agents
+    state = state.replace(
+        phys=state.phys.replace(agents=ag.replace(pos=ag.pos.at[..., 0].add(env.curr_up_dist + 1.0))),
+        episode_length=jnp.full((4,), env.max_episode_length, dtype=jnp.int32))
+    out = _step_record(rec, "curr/step1", env, state, np.zeros((4, 1, 3), np.float32),
+                       jax.random.PRNGKey(1))
+    state = out.replace(episode_length=jnp.full((4,), env.max_episode_length, dtype=jnp.int32),
+                        commands=jnp.ones((4, 1, 3)))
+    _step_record(rec, "curr/step2", env, state, np.ones((4, 1, 3), np.float32),
+                 jax.random.PRNGKey(2))
+
+    state = env._reset_all(jax.random.PRNGKey(3))
+    cmds = np.zeros((4, 1, 3), np.float32)
+    cmds[..., 0] = 0.5
+    key = jax.random.PRNGKey(4)
+    for _ in range(10):
+        key, k = jax.random.split(key)
+        state = env.step(state, jnp.asarray(cmds), k)[0]
+    _step_record(rec, "hf/step", env, state, cmds, jax.random.PRNGKey(5))
+
+    genv = Go1Env(_gate_rows_cfg(Go1GateCfg), num_envs=NUM_ENVS, seed=0)
+    assert genv.curriculum
+    state = genv._reset_all(jax.random.PRNGKey(0), jnp.asarray(1 - genv.env_rows, dtype=jnp.int32))
+    acts = np.random.RandomState(3).uniform(-1, 1, (11, NUM_ENVS, 2, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(1)
+    for t in range(10):
+        key, k = jax.random.split(key)
+        state = genv.step(state, jnp.asarray(acts[t]), k)[0]
+    _step_record(rec, "gate-rows/step", genv, state, acts[10], jax.random.PRNGKey(7))
+    rec["gate-rows/grid_env_origins"] = np.asarray(genv.grid_env_origins)
+    rec["gate-rows/env_rows"] = np.asarray(genv.env_rows)
+    for k in ("curr/step1", "curr/step2", "hf/step", "gate-rows/step"):
+        print(k, "levels", rec[f"{k}/start/terrain_levels"], "->", rec[f"{k}/out/terrain_levels"],
+              "done", rec[f"{k}/done"])
+    return rec
+
+
+def _recorded_start(wrap, task, case="in-contact"):
+    """A start state of torch_<task>_step.npz as a JAX TaskState of `wrap`."""
+    import jax.numpy as jnp
+
+    template, _ = wrap.reset(jax.random.PRNGKey(0))
+    prefix = f"{case}/start"
+    with np.load(os.path.join(GOLDENS, f"torch_{task}_step.npz")) as f:
+        start = {k: f[k] for k in f.files if k.startswith(prefix + "/")}
+    paths = list(_flat(prefix, template))
+    assert sorted(paths) == sorted(start), "the step record does not hold a whole state"
+    treedef = jax.tree_util.tree_structure(template)
+    return jax.tree_util.tree_unflatten(treedef, [jnp.asarray(start[p]) for p in paths])
+
+
+def record_camera() -> dict:
+    """torch_camera.npz: the onboard depth and RGB images of `_observations`
+    (op by op) with the camera on, "<case>/state/..." (an EnvState) beside
+    "<case>/depth" and "<case>/rgb":
+      - "gate/post-reset": go1gate's reset of PRNGKey(0);
+      - "gate/in-contact": the "in-contact" start of torch_go1gate_step.npz;
+      - "sheep/in-contact": go1sheep-easy's (the NPC roots' impostors);
+      - "perlin-gate": go1gate's ground with perlin noise (the heightfield
+        march) at go1gate's in-contact state;
+      - "gate-rows": go1gate on two rows with the curriculum on, reset with
+        PRNGKey(0) onto the other row of each env (each env's wall boxes
+        and origins of its level).
+    """
+    from mqe_tpu.envs.go1_env import Go1Env
+    from mqe_tpu.envs.registry import make_mqe_env
+    from mqe_tpu.envs.tasks import Go1GateCfg, SingleSheepCfg
+
+    import jax.numpy as jnp
+
+    rec = {}
+
+    def put(case, env, state):
+        ob = env._observations(state)
+        rec.update(_flat(f"{case}/state", state))
+        rec[f"{case}/depth"] = np.asarray(ob.depth_image)
+        rec[f"{case}/rgb"] = np.asarray(ob.rgb_image)
+
+    for task, base in (("go1gate", Go1GateCfg), ("go1sheep-easy", SingleSheepCfg)):
+        cam = _gate_rows_cfg(base, camera=True, rows=None)
+        wrap, _ = make_mqe_env(task, num_envs=NUM_ENVS, seed=0, custom_cfg=lambda _c: cam)
+        label = "gate" if task == "go1gate" else "sheep"
+        if task == "go1gate":
+            put("gate/post-reset", wrap.env, wrap.reset(jax.random.PRNGKey(0))[0].env)
+        put(f"{label}/in-contact", wrap.env, _recorded_start(wrap, task).env)
+    pwrap, _ = make_mqe_env("go1gate", num_envs=NUM_ENVS, seed=0,
+                            custom_cfg=lambda _c: _gate_rows_cfg(Go1GateCfg, camera=True,
+                                                                 perlin=True, rows=None))
+    assert pwrap.env.scene.flat_height is None
+    put("perlin-gate", pwrap.env, _recorded_start(pwrap, "go1gate").env)
+    genv = Go1Env(_gate_rows_cfg(Go1GateCfg, camera=True), num_envs=NUM_ENVS, seed=0)
+    put("gate-rows", genv, genv._reset_all(
+        jax.random.PRNGKey(0), jnp.asarray(1 - genv.env_rows, dtype=jnp.int32)))
+    return rec
+
+
+# the MPC record: go1gate's two robots, the controller's horizon
+MPC_H = 20
+MPC_ENVS = 2
+
+
+def _ilqr_parts(solve):
+    """The solver's inner functions (`backward`, `forward`, ...), read from
+    the closure of the JAX package's `solve` (`linearize` from `backward`'s)."""
+    return dict(zip(solve.__code__.co_freevars, (c.cell_contents for c in solve.__closure__)))
+
+
+def _mpc_problem(task, A=2):
+    """(dynamics, stage, final, cfg) of CommandMPC's default set-up for
+    `task` at A robots: the default CommandModel, the RL envelope limits,
+    H = MPC_H, 8 iterations."""
+    from mqe_tpu.mpc import costs as C
+    from mqe_tpu.mpc.command_model import CommandModel, joint_dynamics
+    from mqe_tpu.mpc.ilqr import ILQRConfig
+
+    lim = tuple([1.0, 0.5, 0.5] * A)
+    cfg = ILQRConfig(horizon=MPC_H, n_iters=8, u_min=tuple(-v for v in lim), u_max=lim)
+    stage, final = {"gate": C.gate_cost, "pushbox": C.pushbox_cost,
+                    "waypoint": C.waypoint_cost}[task](A)
+    return joint_dynamics(CommandModel(dt=0.1, num_agents=A)), stage, final, cfg
+
+
+def _mpc_inputs(task, rng, A=2):
+    """x0 (E, A*6), u_init (E, H, A*3) and args of `task` for MPC_ENVS envs,
+    drawn from `rng` around go1gate's start: robots near x = 0.5, y = +-0.5."""
+    E = MPC_ENVS
+    x0 = np.zeros((E, A, 6), np.float32)
+    x0[..., 0] = 0.5 + 0.2 * rng.randn(E, A)
+    x0[..., 1] = np.array([0.5, -0.5])[:A] + 0.1 * rng.randn(E, A)
+    x0[..., 2] = 0.2 * rng.randn(E, A)
+    x0[..., 3:] = 0.2 * rng.randn(E, A, 3)
+    u0 = (0.3 * rng.randn(E, MPC_H, A * 3)).astype(np.float32)
+    if task == "gate":
+        args = {"gate": np.stack([3.8 + 0.1 * rng.randn(E), 0.4 * rng.randn(E)], -1),
+                "goal_x": np.full(E, 6.1)}
+    elif task == "pushbox":
+        args = {"box": np.stack([2.0 + 0.3 * rng.randn(E), 0.3 * rng.randn(E)], -1),
+                "push_dir": np.tile([1.0, 0.0], (E, 1))}
+    else:
+        args = {"targets": x0[..., :2] + np.array([3.0, 0.0])}
+    return x0.reshape(E, -1), u0, {k: v.astype(np.float32) for k, v in args.items()}
+
+
+def _alpha_trace(solve, x0, u_init, args):
+    """The JAX solve's own iteration (mqe_tpu/mpc/ilqr.py: solve's
+    `iteration`), op for op with the closure's functions, for one problem;
+    returns the index of the chosen step size and whether the cost
+    improved, each iteration, and the final (us, cost)."""
+    import jax.numpy as jnp
+
+    p = _ilqr_parts(solve)
+    cfg, alphas = p["cfg"], p["alphas"]
+    us = jnp.clip(u_init, jnp.asarray(cfg.u_min), jnp.asarray(cfg.u_max))
+    xs = p["rollout"](x0, us, args)
+    cost = p["total_cost"](xs, us, args)
+    reg = jnp.asarray(cfg.reg_init)
+    best_seq, improved_seq = [], []
+    for _ in range(cfg.n_iters):
+        ks, Ks = p["backward"](xs, us, args, reg)
+        xs_c, us_c, c_c = jax.vmap(lambda a: p["forward"](xs, us, ks, Ks, args, a))(alphas)
+        c_c = jnp.where(jnp.isnan(c_c), jnp.inf, c_c)
+        best = jnp.argmin(c_c)
+        c_best = c_c[best]
+        improved = c_best < cost
+        xs = jnp.where(improved, xs_c[best], xs)
+        us = jnp.where(improved, us_c[best], us)
+        cost = jnp.where(improved, c_best, cost)
+        reg = jnp.where(improved, jnp.maximum(reg * 0.5, cfg.reg_min),
+                        jnp.minimum(reg * 10.0, cfg.reg_max))
+        best_seq.append(int(best))
+        improved_seq.append(bool(improved))
+    return np.array(best_seq), np.array(improved_seq), np.asarray(us), float(cost)
+
+
+def _tie_pair(want, make, dx0):
+    """float32 (dx, dy) near (dx0, sqrt(want^2... )) with make(dx, dy) ==
+    float32(want) exactly (a hinge's kink): dx steps by ulps from dx0, dy is
+    searched around the value that closes the gap."""
+    f32 = np.float32
+    want = f32(want)
+    dx = f32(dx0)
+    for _ in range(400):
+        for dy in (f32(np.sqrt(max(float(want) ** 2 - float(dx) ** 2, 0.0))),
+                   f32(np.sqrt(max(float(want) - float(dx) ** 2, 0.0)))):
+            for _ in range(64):
+                got = make(dx, dy)
+                if got == want:
+                    return dx, dy
+                dy = np.nextafter(dy, f32(np.inf) if got < want else f32(0))
+        dx = np.nextafter(dx, f32(np.inf))
+    raise AssertionError(f"no float32 tie point for {want}")
+
+
+def record_mpc() -> dict:
+    """torch_mpc.npz, the MPC's JAX side (op by op, some pieces jitted):
+      - "gate/pass/...": one backward pass (`ks`, `Ks`) and one forward
+        pass per step size (`xs`, `us`, `cost`, (S, E, ...)) of the JAX
+        solver for `gate_cost` at A = 2, H = MPC_H, from equal (xs, us,
+        args): `us` drawn from RandomState(0) (`_mpc_inputs`), `xs` their
+        rollout, reg 1e-2; and the linearization (`fx`, `fu`, `lx`, `lu`,
+        `lxx`, `luu`, `lux`) at those knots;
+      - "<task>/solve/...": a whole solve of `_mpc_problem(task)` at
+        MPC_ENVS envs (inputs from RandomState(1)): `xs`, `us`, `cost`,
+        `cost_trace`, and per env the step-size index each iteration chose
+        and whether it improved (`best`, `improved`; `_alpha_trace`), for
+        gate, pushbox and waypoint;
+      - "kink/<cost>/...": a stage cost, its gradient and Hessian in (x, u)
+        at a point on a hinge's kink: "sep", two robots exactly d_min apart
+        under gate_cost; "heading", a robot exactly 2 m from its waypoint
+        under waypoint_cost.
+    """
+    import jax.numpy as jnp
+
+    from mqe_tpu.mpc import costs as C
+    from mqe_tpu.mpc.ilqr import make_ilqr
+
+    rec = {}
+    dyn, stage, final, cfg = _mpc_problem("gate")
+    solve = make_ilqr(dyn, stage, final, cfg)
+    p = _ilqr_parts(solve)
+    x0, u0, args = _mpc_inputs("gate", np.random.RandomState(0))
+    us = jnp.clip(jnp.asarray(u0), jnp.asarray(cfg.u_min), jnp.asarray(cfg.u_max))
+    jargs = {k: jnp.asarray(v) for k, v in args.items()}
+    xs = jax.vmap(p["rollout"])(jnp.asarray(x0), us, jargs)
+    reg = jnp.full((MPC_ENVS,), 1e-2)
+    ks, Ks = jax.vmap(p["backward"])(xs, us, jargs, reg)
+    lin = jax.vmap(_ilqr_parts(p["backward"])["linearize"])(xs, us, jargs)
+    fw = [jax.vmap(lambda x_, u_, k_, K_, a_: p["forward"](x_, u_, k_, K_, a_, alpha))(
+        xs, us, ks, Ks, jargs) for alpha in p["alphas"]]
+    rec.update({"gate/pass/xs": np.asarray(xs), "gate/pass/us": np.asarray(us),
+                "gate/pass/reg": np.asarray(reg), "gate/pass/ks": np.asarray(ks),
+                "gate/pass/Ks": np.asarray(Ks)})
+    rec.update({f"gate/pass/args/{k}": v for k, v in args.items()})
+    for name, v in zip(("fx", "fu", "lx", "lu", "lxx", "luu", "lux"), lin):
+        rec[f"gate/pass/{name}"] = np.asarray(v)
+    for i, name in enumerate(("fw_xs", "fw_us", "fw_cost")):
+        rec[f"gate/pass/{name}"] = np.stack([np.asarray(f[i]) for f in fw])
+
+    for task in ("gate", "pushbox", "waypoint"):
+        dyn, stage, final, cfg = _mpc_problem(task)
+        solve = make_ilqr(dyn, stage, final, cfg)
+        x0, u0, args = _mpc_inputs(task, np.random.RandomState(1))
+        jargs = {k: jnp.asarray(v) for k, v in args.items()}
+        sol = jax.jit(jax.vmap(solve))(jnp.asarray(x0), jnp.asarray(u0), jargs)
+        traces = [_alpha_trace(solve, jnp.asarray(x0[e]), jnp.asarray(u0[e]),
+                               {k: v[e] for k, v in jargs.items()}) for e in range(MPC_ENVS)]
+        for e, (_, _, us_e, c_e) in enumerate(traces):
+            assert np.allclose(us_e, np.asarray(sol.us[e]), atol=1e-5), "the iteration replay"
+            assert np.isclose(c_e, float(sol.cost[e]), rtol=1e-5), "the iteration replay"
+        pre = f"{task}/solve"
+        rec.update({f"{pre}/x0": x0, f"{pre}/u_init": u0, f"{pre}/xs": np.asarray(sol.xs),
+                    f"{pre}/us": np.asarray(sol.us), f"{pre}/cost": np.asarray(sol.cost),
+                    f"{pre}/cost_trace": np.asarray(sol.cost_trace),
+                    f"{pre}/best": np.stack([t[0] for t in traces]),
+                    f"{pre}/improved": np.stack([t[1] for t in traces])})
+        rec.update({f"{pre}/args/{k}": v for k, v in args.items()})
+        print(task, "costs", np.asarray(sol.cost), "best", rec[f"{pre}/best"].tolist(),
+              "improved", rec[f"{pre}/improved"].tolist())
+
+    # the hinges' kinks: gate_cost's separation (d_min 0.45 under gate_cost:
+    # d2 == 0.45 ** 2 in float32) and waypoint_cost's heading term (dist ==
+    # 2.0); robot 1 / the robot at the origin, so the differences are exact
+    f32 = np.float32
+    sq = lambda a, b: f32(f32(a * a) + f32(b * b))  # noqa: E731
+    dx, dy = _tie_pair(0.45 ** 2, sq, 0.3)
+    assert f32(0.45 ** 2) - sq(dx, dy) == 0
+    x_sep = np.zeros(12, f32)
+    x_sep[[0, 1]] = [dx, dy]
+    hx, hy = _tie_pair(2.0, lambda a, b: f32(np.sqrt(f32(sq(a, b) + f32(1e-6)))), 1.9)
+    x_head = np.array([0.0, 0.0, 0.3, 0.1, 0.0, 0.05], f32)
+    kink = {
+        "sep": (C.gate_cost(2)[0], x_sep, {"gate": np.array([3.8, 0.1], f32),
+                                           "goal_x": np.array(6.1, f32)}),
+        "heading": (C.waypoint_cost(1)[0], x_head, {"targets": np.array([[hx, hy]], f32)}),
+    }
+    for name, (st, x, a) in kink.items():
+        n = x.shape[0]
+        u = (0.1 * np.arange(n // 2, dtype=f32) - 0.2).astype(f32)
+        z = jnp.concatenate([jnp.asarray(x), jnp.asarray(u)])
+        ja = {k: jnp.asarray(v) for k, v in a.items()}
+        lz = lambda z_: st(z_[:n], z_[n:], 0, ja)  # noqa: E731
+        rec.update({f"kink/{name}/x": x, f"kink/{name}/u": u,
+                    f"kink/{name}/value": np.asarray(lz(z)),
+                    f"kink/{name}/grad": np.asarray(jax.grad(lz)(z)),
+                    f"kink/{name}/hessian": np.asarray(jax.hessian(lz)(z))})
+        rec.update({f"kink/{name}/args/{k}": v for k, v in a.items()})
+    return rec
+
 
 FILES = {
     "torch_go1gate_step.npz": partial(record, "go1gate", ("post-reset", "in-contact")),
@@ -1007,6 +1424,9 @@ FILES = {
     "torch_policy_step.npz": record_policy_backend,
     "torch_go1gate_events_step.npz": record_events,
     "torch_locomotion_ppo_update.npz": record_loco_ppo_update,
+    "torch_terrain.npz": record_terrain,
+    "torch_camera.npz": record_camera,
+    "torch_mpc.npz": record_mpc,
 }
 
 
