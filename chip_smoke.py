@@ -98,9 +98,35 @@ Phases, each printing one line with its elapsed seconds:
                the same x0, warm start and args (cost at MPC_COST_REL); and
                `run_mpc.main` at SLICE_ENVS envs for 5 cycles. The launches a
                step as in `slice`, the solves launching none.
+ 13. aos     - the AoS reference path (`use_soa=False`: scene.substep's
+               per-tree 6x6 dynamics, no kernel) at SLICE_ENVS envs
+               against the default path (the kernels), resynced each step
+               as tests/test_soa_episode.py does (`AOS_TASKS`: go1gate 5
+               steps, go1pushbox and go1seesaw 2): the worst difference per
+               quantity printed beside CHECK_TOLS (measured: the JAX
+               package's own SoA-vs-AoS drop fails that bound on the CPU),
+               the kernels' counts 0 over every AoS step (asserted), the
+               ms and CUDA kernels of an AoS step and of a default one;
+               then an AoS step card vs CPU at 2 envs of each of the three
+               tasks, held to CHECK_TOLS, no kernel launched.
+ 14. mesh    - the env axis split over 2 ranks of
+               `python -m mqe_tpu_torch.parallel.worker` on the one card
+               (gloo over CUDA tensors; each rank killed after RANK_TIMEOUT
+               s): go1gate at SLICE_ENVS global envs, MESH_STEPS steps
+               gathered and held to the unsharded run in this process (obs
+               and reward at 1e-4, dones equal, the end state at
+               CHECK_TOLS), each rank's launches equal to the unsharded
+               run's (each launch over half the robots); one PPO update
+               (PPOConfig's defaults) held at SGD_TOL to this process's
+               update of the same rollout summed in the ranks' order
+               (`ranks_order_update`), its distance from the update summed
+               in one process's order printed beside that order's own
+               effect; then a one-rank NCCL group's update (gradients
+               all-reduced through NCCL) at SGD_TOL.
 Then the kernels' JSON line (`launches`: the sum over the slices', the
 training updates' and the new phases' runs, by task, "train",
-"locomotion", "curriculum", "camera" and "mpc" under
+"locomotion", "curriculum", "camera", "mpc", "aos" (none), "mesh" (the
+ranks') and "mesh_reference" (the unsharded runs) under
 `launches_by_task`), the
 card's name and power limit, and the result line `{"ok": true, "device":
 {...}}`. Any failed phase raises (exit code 1); with no CUDA device it exits
@@ -134,7 +160,7 @@ from mqe_tpu_torch.learn import evaluate, train_locomotion  # noqa: E402
 from mqe_tpu_torch.learn.locomotion_env import LocomotionEnv  # noqa: E402
 from mqe_tpu_torch.learn.mat import MATTrainer  # noqa: E402
 from mqe_tpu_torch.learn.networks import gaussian_logp  # noqa: E402
-from mqe_tpu_torch.learn.ppo import PPOConfig, PPOTrainer  # noqa: E402
+from mqe_tpu_torch.learn.ppo import ENV_BLOCK, PPOConfig, PPOTrainer  # noqa: E402
 from mqe_tpu_torch.mpc import CommandMPC, fit_command_model, run_mpc  # noqa: E402
 from mqe_tpu_torch.mpc.controller import planner_state  # noqa: E402
 from mqe_tpu_torch.physics import fused_step, soa  # noqa: E402
@@ -696,6 +722,27 @@ def sgd_card_vs_cpu(tr, smi):
         raise AssertionError(f"SGD card vs CPU: params differ by {worst:.3e} > {SGD_TOL:.0e}")
 
 
+def policy_blocks_ms(tr, ts, smi, reps=50):
+    """The rollout's policy pass over the envs in blocks of ENV_BLOCK (what
+    makes a sharded rollout the unsharded one bit for bit) against one pass
+    over all of them, timed apart in this process."""
+    obs = tr.w.observe(ts.env_state)
+    ms = {}
+    with torch.no_grad():
+        blocks = lambda p, o: tr._apply(p, o, blocks=True)  # noqa: E731
+        for label, fn in (("blocks", blocks), ("whole", tr._apply), ("blocks again", blocks)):
+            fn(ts.params, obs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(ts.params, obs)
+            torch.cuda.synchronize()
+            ms[label] = (time.perf_counter() - t0) / reps * 1e3
+    say("train", f"policy pass over {tr.E} envs: in blocks of {ENV_BLOCK} "
+        f"{ms['blocks']:.3f} / {ms['blocks again']:.3f} ms, in one {ms['whole']:.3f} ms "
+        f"(x {tr.cfg.rollout_len} an update's rollout); on {smi}")
+
+
 def phase_train(smi):
     """Training updates on the card, the SGD check and the evaluations.
     Returns the launches summed over the updates."""
@@ -713,6 +760,7 @@ def phase_train(smi):
             raise AssertionError(f"train {label}: params did not move")
         if label == "ppo":
             sgd_card_vs_cpu(tr, smi)
+            policy_blocks_ms(tr, ts, smi)
     for task, path, recurrent in EVAL_CHECKPOINTS:
         t0 = time.perf_counter()
         rec = evaluate.main(["--task", task, "--checkpoint", os.path.join(REPO, path),
@@ -1140,6 +1188,371 @@ def phase_mpc(smi):
     return total
 
 
+# phase aos: (task, resynced control steps) at SLICE_ENVS envs, the AoS path
+# (use_soa=False) against the default path; the card-vs-CPU AoS steps
+AOS_TASKS = (("go1gate", 5), ("go1pushbox", 2), ("go1seesaw", 2))
+AOS_CHECK_TASKS = ("go1gate", "go1pushbox", "go1seesaw")
+# phase mesh: 2 ranks of parallel/worker.py on the one card, go1gate at
+# SLICE_ENVS global envs, MESH_STEPS steps and one PPO update (PPOConfig's
+# defaults); each rank's process is killed after RANK_TIMEOUT s
+MESH_WORLD, MESH_STEPS, RANK_TIMEOUT = 2, 3, 600
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def kernels_per_step(step, dev):
+    """CUDA kernels one call of `step` launches (torch.profiler's count)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        sync(dev)
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def aos_vs_soa(smi, task, steps, num_envs=SLICE_ENVS, dev="cuda"):
+    """`steps` control steps of `task`: from each AoS state one step of the
+    default path (the kernels) and one of the AoS path with the same draws,
+    resynced to the AoS state (tests/test_soa_episode.py's scheme). The
+    worst difference per quantity is printed beside CHECK_TOLS, not held to
+    it (the JAX package's own SoA-vs-AoS drop fails that bound on the CPU:
+    touchdown transients; tests/test_torch_aos.py holds the AoS path to
+    JAX's AoS instead). The kernels' counts must read 0 over every AoS step
+    and 8 (16 with NPCs) over every default one. Returns the AoS launches
+    and the AoS ms a step (after the first)."""
+    from dataclasses import replace
+
+    wrap, _ = make_mqe_env(task, num_envs=num_envs, seed=0, device=dev)
+    env = wrap.env
+    soa_scene = env.scene
+    aos_scene = replace(soa_scene, use_soa=False)
+    ts, _ = wrap.reset()
+    cmds = torch.as_tensor(np.random.RandomState(1).uniform(
+        -1, 1, (num_envs, wrap.controlled_agents, 3)).astype(np.float32), device=dev)
+    worst = {f"{who}.{n}": 0.0 for who in ("agents", "npcs") for n in NAMES}
+    over = {n: 0 for n in worst}
+    aos_ms, soa_ms, aos_total = [], [], {name: 0 for name in KERNELS}
+    for t in range(steps):
+        given = {"fresh": env.fresh_state()}
+        out = {}
+        for label, sc in (("soa", soa_scene), ("aos", aos_scene)):
+            env.scene = sc
+            reset_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            out[label] = wrap.step(ts, cmds, env.draws(given))[0]
+            sync(dev)
+            (aos_ms if label == "aos" else soa_ms).append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts()
+            if label == "aos":
+                if any(counts.values()):
+                    raise AssertionError(f"aos {task}: the AoS step launched kernels {counts}")
+                add_counts(aos_total, counts)
+            elif torch.device(dev).type == "cuda":
+                check_counts(f"aos {task} default step", counts, env, 1)
+        for who in ("agents", "npcs"):
+            for n in NAMES:
+                a = getattr(getattr(out["aos"].env.phys, who), n)
+                b = getattr(getattr(out["soa"].env.phys, who), n)
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"aos {task}: non-finite {who}.{n}")
+                if a.numel():
+                    d = (a - b).abs().flatten(1).amax(dim=1)       # per env
+                    worst[f"{who}.{n}"] = max(worst[f"{who}.{n}"], float(d.max()))
+                    over[f"{who}.{n}"] += int((d > CHECK_TOLS[n]).sum())
+        ts = out["aos"]                                            # resync
+    env.scene = aos_scene
+    n_k = kernels_per_step(lambda: wrap.step(ts, cmds), dev) if dev == "cuda" else 0
+    env.scene = soa_scene
+    n_k_soa = kernels_per_step(lambda: wrap.step(ts, cmds), dev) if dev == "cuda" else 0
+    later, soa_later = aos_ms[1:] or aos_ms, soa_ms[1:] or soa_ms
+    say("aos", f"{task} {num_envs} envs, {steps} resynced steps, AoS vs default (kernels) "
+        "worst per quantity (measured, not gated; bound CHECK_TOLS, envs over it of "
+        f"{num_envs * steps}): " + ", ".join(
+            f"{n} {v:.3e} ({CHECK_TOLS[n.split('.')[1]]:.0e}, {over[n]})"
+            for n, v in worst.items() if not (n.startswith("npcs") and env.scene.num_npcs == 0)))
+    say("aos", f"{task}: AoS step {min(later):.2f}-{max(later):.2f} ms (first {aos_ms[0]:.2f}), "
+        f"{n_k} CUDA kernels a step; default step {min(soa_later):.2f}-{max(soa_later):.2f} ms "
+        f"(first {soa_ms[0]:.2f}), "
+        f"{n_k_soa} kernels a step; hand-written kernels over the AoS steps {aos_total}; on {smi}")
+    return aos_total, later, n_k
+
+
+def phase_aos(smi, num_envs=SLICE_ENVS, dev="cuda"):
+    """The AoS reference path (use_soa=False): against the default path on
+    `AOS_TASKS` at full width, and one step card vs CPU at 2 envs (held to
+    CHECK_TOLS) of `AOS_CHECK_TASKS`. Returns the hand-written kernels'
+    launches over the AoS steps (all 0)."""
+    from dataclasses import replace
+
+    total = {name: 0 for name in KERNELS}
+    for task, steps in AOS_TASKS:
+        add_counts(total, aos_vs_soa(smi, task, steps, num_envs, dev)[0])
+    if torch.device(dev).type != "cuda":
+        return total
+    for task in AOS_CHECK_TASKS:
+        wrap_c, _ = make_mqe_env(task, num_envs=2, seed=0, device="cuda")
+        wrap_h, _ = make_mqe_env(task, num_envs=2, seed=0, device="cpu")
+        for w in (wrap_c, wrap_h):
+            w.env.scene = replace(w.env.scene, use_soa=False)
+        ts_c, _ = wrap_c.reset()
+        acts = np.random.RandomState(5).uniform(
+            -1, 1, (2, wrap_c.controlled_agents, 3)).astype(np.float32)
+        reset_counts()
+        compare_step(f"{task} AoS path, 2 envs", wrap_c, wrap_h, ts_c, acts,
+                     {"fresh": wrap_c.env.fresh_state()})
+        if any(read_counts().values()):
+            raise AssertionError(f"aos {task}: the AoS card-vs-CPU step launched kernels")
+        say("aos", f"{task} AoS path card vs CPU at CHECK_TOLS: ok, no kernel launched")
+    return total
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world, args, backend="gloo", dev="cuda"):
+    """`world` ranks of `python -m mqe_tpu_torch.parallel.worker` with `args`;
+    each is waited for at most RANK_TIMEOUT s and killed after it. Any rank
+    that fails fails the phase. Returns the ranks' printed results."""
+    port = _free_port()
+    env = dict(os.environ)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mqe_tpu_torch.parallel.worker", "--rank", str(r),
+         "--world", str(world), "--port", str(port), "--backend", backend, "--device", dev,
+         *args], cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                stdout, stderr = p.communicate(timeout=RANK_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+                raise AssertionError(f"mesh: rank {r} of {world} timed out after "
+                                     f"{RANK_TIMEOUT} s:\n{stderr[-3000:]}")
+            if p.returncode != 0 or f"WORKER OK rank={r}" not in stdout:
+                raise AssertionError(f"mesh: rank {r} of {world} ({backend}) failed, rc "
+                                     f"{p.returncode}:\n{stderr[-3000:]}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1].split(f"world={world} ")[1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def ranks_order_update(tr, ts0, rollout, world, perm_state):
+    """The one-process update of `rollout` with the ranks' summation order:
+    rank r of `world` holds the envs' r-th contiguous block; every sum
+    (return and advantage statistics, each minibatch's loss and gradient) is
+    taken over each block's rows, as that rank takes it, and the blocks'
+    sums added in rank order, as the all-reduce adds them. The same
+    function as `tr._learn`, summed in another order; `perm_state` is the
+    generator's state after the rollout. Returns the params."""
+    from copy import copy
+
+    from mqe_tpu_torch.parallel.mesh import EnvMesh
+
+    cfg, E = tr.cfg, tr.E
+    El = E // world
+    blocks = [slice(r * El, (r + 1) * El) for r in range(world)]
+
+    def gsum(x):                                   # x (T, E, ...)
+        tot = None
+        for b in blocks:
+            s_ = x[:, b].contiguous().sum()
+            tot = s_ if tot is None else tot + s_
+        return tot
+
+    def gmean(x):
+        return gsum(x) / x.numel()
+
+    _, traj, final_value, _, _ = rollout
+    traj, final_value = tr._valuenorm(ts0, traj, final_value)
+    advs, returns = tr._gae(traj, final_value)
+    b_ = cfg.valuenorm_beta
+    mean = gmean(returns)
+    new_mean = b_ * ts0.ret_mean + (1 - b_) * mean
+    new_var = b_ * ts0.ret_var + (1 - b_) * gmean((returns - mean) ** 2)
+    ret = (returns - new_mean) / torch.sqrt(new_var + 1e-8)
+    amean = gmean(advs)
+    advs = (advs - amean) / (torch.sqrt(gmean((advs - amean) ** 2)) + 1e-8)
+    local = [tr._batch({k: v[:, b].contiguous() for k, v in traj.items()},
+                       advs[:, b].contiguous(), ret[:, b].contiguous()) for b in blocks]
+    n_local = local[0]["adv"].shape[0]
+    n = n_local * world
+    mb = n // cfg.num_minibatches
+    rank_view = copy(tr)
+    rank_view.mesh = EnvMesh(rank=0, world=world)  # _loss reads the rank count only
+    gen = torch.Generator(device=ts0.generator.device)
+    gen.set_state(perm_state)
+    params, opt = dict(ts0.params), ts0.opt_state
+    A = tr.A
+    for _ in range(cfg.ppo_epochs):
+        perm = Draws(gen).permutation("perm", n, local[0]["adv"].device)
+        for i in range(cfg.num_minibatches):
+            idx = perm[i * mb:(i + 1) * mb]
+            t_, rem = idx // (E * A), idx % (E * A)
+            e_, j_ = rem // A, rem % A
+            grads = None
+            for r in range(world):
+                mine = (e_ >= r * El) & (e_ < (r + 1) * El)
+                rows = (t_ * (El * A) + (e_ - r * El) * A + j_)[mine]
+                leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+                loss, _ = rank_view._loss(leaves, {k: v[rows] for k, v in local[r].items()},
+                                          rows=mb)
+                g = torch.cat([x.reshape(-1) for x in
+                               torch.autograd.grad(loss, list(leaves.values()))])
+                grads = g if grads is None else grads + g
+            out, at = {}, 0
+            for k, v in params.items():
+                out[k] = grads[at:at + v.numel()].view_as(v)
+                at += v.numel()
+            params, opt = tr.tx.step(params, out, opt)
+    return params
+
+
+def phase_mesh(smi, num_envs=SLICE_ENVS, dev="cuda", steps=MESH_STEPS, cfg=PPOConfig()):
+    """The env axis split over MESH_WORLD ranks on the one card (gloo over
+    CUDA tensors): go1gate's steps and one PPO update, gathered and held to
+    the unsharded run in this process (obs and reward at 1e-4, dones equal,
+    the end state at CHECK_TOLS, params at SGD_TOL); each rank's kernel
+    launches equal the unsharded run's, each launch over half the robots.
+    Then a one-rank NCCL group runs the same update (its gradients
+    all-reduced through NCCL), params at SGD_TOL. Returns the launches of
+    the ranks and of the unsharded runs."""
+    nccl = torch.device(dev).type == "cuda"
+    # the unsharded reference
+    wrap, _ = make_mqe_env("go1gate", num_envs=num_envs, seed=0, device=dev)
+    ts, _ = wrap.reset()
+    acts = torch.as_tensor(np.random.RandomState(1).uniform(
+        -1, 1, (num_envs, wrap.controlled_agents, 3)).astype(np.float32), device=dev)
+    reset_counts()
+    ref = []
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ts, obs, rew, done, _ = wrap.step(ts, acts)
+        ref.append((obs, rew, done))
+    sync(dev)
+    ref_steps_s = time.perf_counter() - t0
+    ref_counts = read_counts()
+    wrap_u, _ = make_mqe_env("go1gate", num_envs=num_envs, seed=0, device=dev)
+    tr = PPOTrainer(wrap_u, cfg, seed=0)
+    ts0 = tr.init_state()
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    rollout = tr._rollout(ts0)                     # update = _learn(ts, _rollout(ts))
+    perm_state = ts0.generator.get_state()         # where the epochs' "perm" draws start
+    ts_u, m_u = tr._learn(ts0, rollout)
+    sync(dev)
+    ref_update_s = time.perf_counter() - t0
+    ref_upd_counts = read_counts()
+    split_params = ranks_order_update(tr, ts0, rollout, MESH_WORLD, perm_state)
+    order_diff = max(float((split_params[k] - v).abs().max()) for k, v in ts_u.params.items())
+    total = {"mesh": {n: 0 for n in KERNELS}, "reference": dict(ref_counts)}
+    add_counts(total["reference"], ref_upd_counts)
+
+    upd = ["--rollout-len", str(cfg.rollout_len), "--num-minibatches", str(cfg.num_minibatches),
+           "--ppo-epochs", str(cfg.ppo_epochs)]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mesh.npz")
+        t0 = time.perf_counter()
+        res = run_ranks(MESH_WORLD, ["--num-envs", str(num_envs), "--steps", str(steps),
+                                     "--update", "--out", out] + upd, dev=dev)
+        wall = time.perf_counter() - t0
+        with np.load(out) as f:
+            rec = dict(f)
+        say("mesh", f"the ranks' TF32 default (turned off there): {bool(rec['tf32_default'])}")
+        worst = {}
+        for t, (obs, rew, done) in enumerate(ref):
+            worst["obs"] = max(worst.get("obs", 0.0),
+                               float(np.abs(rec[f"step/{t}/obs"] - obs.cpu().numpy()).max()))
+            worst["reward"] = max(worst.get("reward", 0.0),
+                                  float(np.abs(rec[f"step/{t}/reward"] - rew.cpu().numpy()).max()))
+            if not np.array_equal(rec[f"step/{t}/done"], done.cpu().numpy()):
+                raise AssertionError(f"mesh: step {t} dones differ from the unsharded run")
+        for k in ("obs", "reward"):
+            if not worst[k] <= 1e-4:
+                raise AssertionError(f"mesh: {k} differs from the unsharded run by "
+                                     f"{worst[k]:.3e} > 1e-4")
+        for n in NAMES:
+            d = float(np.abs(rec[f"step/end/agents/{n}"]
+                             - getattr(ts.env.phys.agents, n).cpu().numpy()).max())
+            worst[n] = d
+            if not d <= CHECK_TOLS[n]:
+                raise AssertionError(f"mesh: end state {n} differs by {d:.3e} > "
+                                     f"{CHECK_TOLS[n]:.0e}")
+        # the gate: the ranks' update against this process's update of the
+        # same rollout summed in the ranks' order; beside it, measured, the
+        # distance of both from the update summed in one process's order
+        p_worst = max(float(np.abs(rec[f"update/params/{k}"] - v.cpu().numpy()).max())
+                      for k, v in split_params.items())
+        plain = {k: float(np.abs(rec[f"update/params/{k}"] - v.cpu().numpy()).max())
+                 for k, v in ts_u.params.items()}
+        if not p_worst <= SGD_TOL:
+            top = sorted(plain.items(), key=lambda kv: -kv[1])[:5]
+            raise AssertionError(f"mesh: sharded update params differ by {p_worst:.3e} > "
+                                 f"{SGD_TOL:.0e} from the one-process update in the ranks' "
+                                 f"order (from the one-process order: {top}); metrics "
+                                 f"{ {k: float(v) for k, v in m_u.items()} } unsharded, "
+                                 f"{ {k[15:]: float(v) for k, v in rec.items() if k.startswith('update/metrics')} } "
+                                 "sharded")
+        per_rank = {}
+        for r in range(MESH_WORLD):
+            per_rank[r] = {n: int(rec[f"launches/steps/{r}/{n}"]) for n in KERNELS}
+            upd_r = {n: int(rec[f"launches/update/{r}/{n}"]) for n in KERNELS}
+            if per_rank[r] != ref_counts or (nccl and upd_r != ref_upd_counts):
+                raise AssertionError(f"mesh: rank {r} launched {per_rank[r]} over the steps "
+                                     f"and {upd_r} over the update; the unsharded run "
+                                     f"{ref_counts} and {ref_upd_counts}")
+            add_counts(total["mesh"], per_rank[r])
+            add_counts(total["mesh"], upd_r)
+        steps_s, upd_s = rec["timing/steps_s"], rec["timing/update_s"]
+        say("mesh", f"{MESH_WORLD} ranks (gloo, {dev}) x {num_envs // MESH_WORLD} envs of go1gate's "
+            f"{num_envs}: {steps} steps gathered vs unsharded: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in worst.items())
+            + f"; PPO update params max diff {p_worst:.3e} from the one-process update "
+            f"summed in the ranks' order (bound {SGD_TOL:.0e}); from it summed in one "
+            f"process's order {max(plain.values()):.3e}, and the two orders in this "
+            f"process {order_diff:.3e} apart (measured, not gated); reward mean "
+            f"{float(rec['update/metrics/reward_mean']):.9f} vs {float(m_u['reward_mean']):.9f}, "
+            f"loss {float(rec['update/metrics/loss']):.6f} vs {float(m_u['loss']):.6f}")
+        say("mesh", f"kernel launches a rank over the {steps} steps {per_rank} (unsharded "
+            f"{ref_counts}; each launch over {num_envs // MESH_WORLD * wrap.num_agents} robots, unsharded "
+            f"{num_envs * wrap.num_agents}); over the update rank 0 "
+            f"{ {n: int(rec[f'launches/update/0/{n}']) for n in KERNELS} } (unsharded "
+            f"{ref_upd_counts}); ranks' steps {np.round(steps_s, 3).tolist()} s, updates "
+            f"{np.round(upd_s, 3).tolist()} s (unsharded in this process {ref_steps_s:.3f} / "
+            f"{ref_update_s:.3f} s); {wall:.1f} s for the ranks' processes; on {smi}")
+        if nccl:
+            out1 = os.path.join(tmp, "nccl.npz")
+            run_ranks(1, ["--num-envs", str(num_envs), "--steps", "1", "--update",
+                          "--out", out1] + upd, backend="nccl", dev=dev)
+            with np.load(out1) as f:
+                rec1 = dict(f)
+            p1 = max(float(np.abs(rec1[f"update/params/{k}"] - v.cpu().numpy()).max())
+                     for k, v in ts_u.params.items())
+            if not p1 <= SGD_TOL:
+                raise AssertionError(f"mesh: the NCCL one-rank update differs by {p1:.3e}")
+            add_counts(total["mesh"], {n: int(rec1[f"launches/update/0/{n}"]) +
+                                       int(rec1[f"launches/steps/0/{n}"]) for n in KERNELS})
+            say("mesh", f"one rank, NCCL: the update's gradients all-reduced through NCCL, "
+                f"params max diff {p1:.3e} from the unsharded update (bound {SGD_TOL:.0e})")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1175,6 +1588,9 @@ def main():
     by_task["curriculum"] = phase_curriculum(smi)
     by_task["camera"] = phase_camera(smi)
     by_task["mpc"] = phase_mpc(smi)
+    by_task["aos"] = phase_aos(smi)
+    mesh = phase_mesh(smi)
+    by_task["mesh"], by_task["mesh_reference"] = mesh["mesh"], mesh["reference"]
     for entry in entries:
         entry["launches"] = sum(counts[entry["name"]] for counts in by_task.values())
         entry["launches_by_task"] = {t: counts[entry["name"]] for t, counts in by_task.items()}

@@ -335,6 +335,9 @@ class Go1Env:
 
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
+        # (start, stop, total) when this env holds one rank's slice of a
+        # larger env batch (parallel/mesh.py::shard_wrapper), else None
+        self.env_slice = None
 
     # ------------------------------------------------------------------
     # construction of fresh (reset) states
@@ -464,7 +467,7 @@ class Go1Env:
 
     def draws(self, given: dict | None = None) -> Draws:
         """Draws from this env's generator, with optional precomputed values."""
-        return Draws(self.generator, given)
+        return Draws(self.generator, given, env_slice=self.env_slice)
 
     def fresh_state(self, draws: Draws | None = None) -> EnvState:
         """A freshly reset state of every env (what `reset` starts from)."""
@@ -618,12 +621,18 @@ class Go1Env:
         return tau, new_hist, lag, target
 
     def _physics(self, state: EnvState, tau):
-        """One decimation substep: `subiters` scene substeps over the env batch."""
+        """One decimation substep: `subiters` scene substeps over the env batch.
+
+        The default is scene.substep_batch (the SoA dynamics and its
+        kernels); a scene with use_soa=False runs scene.substep, the AoS
+        reference path (`env.scene = dataclasses.replace(env.scene,
+        use_soa=False)`)."""
         phys = state.phys
         terrain = self._terrain_for(state.terrain_levels)
+        sub = S.substep_batch if self.scene.use_soa else S.substep
         for _ in range(self.subiters):
-            phys, contacts = S.substep_batch(
-                self.scene, terrain, phys, tau, state.dr, self.sim_dt / self.subiters)
+            phys, contacts = sub(self.scene, terrain, phys, tau, state.dr,
+                                 self.sim_dt / self.subiters)
         return phys, contacts
 
     def _termination(self, state: EnvState, contacts):

@@ -25,7 +25,6 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
 
 from mqe_tpu_torch.learn.networks import dense, gaussian_logp
 from mqe_tpu_torch.learn.ppo import PPOConfig, PPOTrainer
@@ -112,16 +111,17 @@ class MATTrainer(PPOTrainer):
     """PPO machinery with the MAT joint policy: batches keep the agent axis,
     actions are sampled agent by agent."""
 
-    def __init__(self, wrapper, config: PPOConfig = PPOConfig(algo="mat"), seed: int = 0):
+    def __init__(self, wrapper, config: PPOConfig = PPOConfig(algo="mat"), seed: int = 0,
+                 mesh=None):
         if config.recurrent:
             raise ValueError("MAT is a transformer; the recurrent policy is PPO's")
-        super().__init__(wrapper, config, seed)
+        super().__init__(wrapper, config, seed, mesh=mesh)
 
     def _make_net(self):
         return MATNetwork(self.obs_dim, self.act_dim)
 
-    def _apply(self, params, obs, prev):
-        return functional_call(self.net, params, (obs, prev))
+    def _apply(self, params, obs, prev, blocks=False):
+        return self._forward(params, (obs, prev), blocks)
 
     def _policy(self, params, obs, draws, h=None):
         """Autoregressive sampling across agents ("act_noise" (E, A, act),
@@ -131,31 +131,31 @@ class MATTrainer(PPOTrainer):
         actions = torch.zeros_like(prev)
         noise = draws.normal("act_noise", prev.shape, obs.device)
         for i in range(A):
-            mean, log_std, _ = self._apply(params, obs, prev)
+            mean, log_std, _ = self._apply(params, obs, prev, blocks=True)
             a_i = mean[..., i, :] + torch.exp(log_std) * noise[..., i, :]
             actions[..., i, :] = a_i
             if i + 1 < A:
                 prev[..., i + 1, :] = a_i
-        mean, log_std, value = self._apply(params, obs, prev)
+        mean, log_std, value = self._apply(params, obs, prev, blocks=True)
         return actions, gaussian_logp(mean, log_std, actions), value, None
 
     def _value(self, params, obs, h=None):
         prev = torch.zeros(obs.shape[:-1] + (self.act_dim,), device=obs.device)
-        return self._apply(params, obs, prev)[2]
+        return self._apply(params, obs, prev, blocks=True)[2]
 
     @staticmethod
     def _shift_actions(actions):
         """actions (..., A, act) -> the teacher-forcing previous-action input."""
         return F.pad(actions[..., :-1, :], (0, 0, 1, 0))
 
-    def _loss(self, params, batch):
+    def _loss(self, params, batch, rows=None):
         cfg = self.cfg
         mean, log_std, value = self._apply(params, batch["obs"], self._shift_actions(batch["action"]))
         logp = gaussian_logp(mean, log_std, batch["action"])
         ratio = torch.exp(logp - batch["logp"])
         adv = batch["adv"]
         pg = torch.minimum(ratio * adv, torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv)
-        return self._total(pg, value, log_std, batch)
+        return self._total(pg, value, log_std, batch, rows)
 
     def _batch(self, traj, advs, ret):
         """Minibatch rows (T*E, A, ...): the agent axis kept."""

@@ -16,6 +16,17 @@ every step. The JAX package jits the update as one program, and keeps
 PyTorch has no program to split, so train.py accepts `--split` and runs the
 same update.
 
+Data parallelism over envs (`PPOTrainer(wrapper, ..., mesh=EnvMesh)`, with
+`wrapper` one rank's slice from parallel/mesh.py::shard_wrapper): every rank
+draws the same global "perm", and within each global minibatch computes the
+loss over the rows it holds divided by the global minibatch size (the
+entropy of the state-independent log_std, which belongs to no row, divided
+by the rank count); the gradients are summed with `all_reduce` before
+`ClipAdam`, whose clip then sees the global norm; the advantage
+normalisation, the value-norm statistics and the metrics use all-reduced
+sums. So the ranks' losses sum to the one-process loss and every rank takes
+the same Adam step. The episode accumulator stays per rank.
+
 Params live in the TrainState as a dict {name: tensor} in flax's leaf order,
 applied to the network module with `torch.func.functional_call`. The
 optimizer (`ClipAdam`) is optax's `chain(clip_by_global_norm, adam)` op for
@@ -33,6 +44,7 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
+from torch import nn
 from torch.func import functional_call
 
 from mqe_tpu_torch.learn.networks import (ActorCritic, RecurrentActorCritic, flax_ordered_names,
@@ -120,17 +132,63 @@ class TrainState:
     rnn_h: torch.Tensor | None = None  # (E, A, H) GRU carry when recurrent
 
 
+# the rollout evaluates the policy over blocks of ENV_BLOCK envs: a GEMM's
+# rounding can depend on its row count (cuBLAS picks its kernel by shape),
+# so with fixed blocks an env's actions do not depend on how many envs the
+# process holds, and a sharded rollout is the unsharded one bit for bit
+# when every rank holds a multiple of ENV_BLOCK envs (up to 4 ranks of 4096
+# envs); each block is a few more launches a policy pass
+ENV_BLOCK = 1024
+
+
+class EnvBlocks(nn.Module):
+    """`net` applied over blocks of ENV_BLOCK envs (its inputs lead with the
+    env axis; None passes through) when the envs split into such blocks:
+    one module, so that `functional_call` swaps the params once a pass."""
+
+    def __init__(self, net: nn.Module):
+        super().__init__()
+        self.net = net
+
+    def forward(self, *args):
+        E = args[0].shape[0]
+        if E <= ENV_BLOCK or E % ENV_BLOCK:
+            return self.net(*args)
+        outs = [self.net(*(a if a is None else a[i:i + ENV_BLOCK] for a in args))
+                for i in range(0, E, ENV_BLOCK)]
+
+        def join(parts):
+            first = parts[0]
+            if first is None or first.ndim == 0 or first.shape[0] != ENV_BLOCK:
+                return first                          # not per env: log_std
+            return torch.cat(parts)
+
+        return tuple(join([o[k] for o in outs]) for k in range(len(outs[0])))
+
+
 def _given_at(given, i, names):
     """The given draws of occurrence i (a rollout step or an epoch)."""
     return {k: v[i] for k, v in (given or {}).items() if k in names}
 
 
 class PPOTrainer:
-    def __init__(self, wrapper, config: PPOConfig = PPOConfig(), seed: int = 0):
+    mesh = None          # parallel.mesh.EnvMesh when the env axis is split
+    env_slice = None     # this rank's (start, stop, total) envs then
+
+    def __init__(self, wrapper, config: PPOConfig = PPOConfig(), seed: int = 0, mesh=None):
         self.w = wrapper
         self.cfg = config
         self.device = wrapper.device
         self.E = wrapper.num_envs
+        # the env axis split over a process group (parallel/mesh.py): the
+        # wrapper holds this rank's (start, stop, total) envs
+        self.mesh = mesh
+        self.env_slice = getattr(getattr(wrapper, "env", None), "env_slice", None)
+        if self.mesh is not None:
+            sl = self.env_slice
+            if sl is None or sl[2] != self.E * mesh.world or sl[0] != mesh.rank * self.E:
+                raise ValueError(f"rank {mesh.rank} of {mesh.world}: the wrapper's envs "
+                                 f"{sl} are not this rank's slice (parallel.mesh.shard_wrapper)")
         self.A = wrapper.controlled_agents
         self.obs_dim = wrapper.obs_dim
         self.act_dim = wrapper.action_dim
@@ -140,6 +198,14 @@ class PPOTrainer:
             self.net = self._make_net().to(self.device)
         own = dict(self.net.named_parameters())
         self.init_params = {n: own[n].detach() for n in flax_ordered_names(self.net)}
+        if self.mesh is not None:
+            # every rank starts from rank 0's params (an init factorised on
+            # the CPU rounds by its thread count)
+            import torch.distributed as dist
+
+            src = 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
+            for p in self.init_params.values():
+                dist.broadcast(p, src=src, group=mesh.group)
         self.tx = ClipAdam(config.lr, config.max_grad_norm)
         # the env's reward-term names: per-task constants, found without a step
         self.term_names = tuple(sorted(self.w.reward_term_names()))
@@ -151,7 +217,7 @@ class PPOTrainer:
 
     def init_state(self) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        env_state, _ = self.w.reset(Draws(gen))
+        env_state, _ = self.w.reset(self._draws(gen))
         params = dict(self.init_params)
         return TrainState(
             params=params, opt_state=self.tx.init(params), env_state=env_state,
@@ -166,19 +232,51 @@ class PPOTrainer:
         )
 
     # ------------------------------------------------------------------
-    def _apply(self, params, obs, h=None):
+    def _draws(self, generator, given=None) -> Draws:
+        """The env-axis draws of this trainer (as one rank's when sharded)."""
+        return Draws(generator, given, env_slice=self.env_slice)
+
+    def _sum(self, t):
+        """t summed over the ranks (t itself in one process)."""
+        if self.mesh is None:
+            return t
+        from mqe_tpu_torch.parallel.mesh import all_reduce_sum
+
+        return all_reduce_sum(t, self.mesh)
+
+    def _mean(self, x):
+        """The mean of x over every rank's elements."""
+        if self.mesh is None:
+            return x.mean()
+        return self._sum(x.sum()) / (x.numel() * self.mesh.world)
+
+    def _var(self, x, mean):
+        """The population variance of x over every rank's elements."""
+        if self.mesh is None:
+            return x.var(correction=0)
+        return self._mean((x - mean) ** 2)
+
+    def _forward(self, params, args, blocks=False):
+        """The network under `params`; with `blocks`, over blocks of
+        ENV_BLOCK envs (the rollout's passes)."""
+        if not blocks:
+            return functional_call(self.net, params, args)
+        return functional_call(EnvBlocks(self.net), {"net." + k: v for k, v in params.items()},
+                               args)
+
+    def _apply(self, params, obs, h=None, blocks=False):
         args = (obs, h) if self.cfg.recurrent else (obs,)
-        out = functional_call(self.net, params, args)
+        out = self._forward(params, args, blocks)
         return out if self.cfg.recurrent else (*out, None)
 
     def _policy(self, params, obs, draws: Draws, h=None):
-        mean, log_std, value, h = self._apply(params, obs, h)
+        mean, log_std, value, h = self._apply(params, obs, h, blocks=True)
         noise = draws.normal("act_noise", mean.shape, mean.device)
         action = mean + torch.exp(log_std) * noise
         return action, gaussian_logp(mean, log_std, action), value, h
 
     def _value(self, params, obs, h=None):
-        return self._apply(params, obs, h)[2]
+        return self._apply(params, obs, h, blocks=True)[2]
 
     @torch.no_grad()
     def _rollout(self, ts: TrainState, given=None):
@@ -196,7 +294,7 @@ class PPOTrainer:
         keys = ("obs", "action", "logp", "value", "reward", "done") + (("h",) if cfg.recurrent else ())
         traj = {k: [] for k in keys}
         for t in range(cfg.rollout_len):
-            draws = Draws(ts.generator, _given_at(given, t, names))
+            draws = self._draws(ts.generator, _given_at(given, t, names))
             action, logp, value, h_next = self._policy(ts.params, obs, draws, h)
             cmd = self.w.rl_prescale(action)
             if warm is not None:
@@ -230,7 +328,7 @@ class PPOTrainer:
         advs = torch.stack(advs)
         return advs, advs + traj["value"]
 
-    def _loss(self, params, batch):
+    def _loss(self, params, batch, rows=None):
         cfg = self.cfg
         mean, log_std, value, _ = self._apply(params, batch["obs"], batch.get("h"))
         logp = gaussian_logp(mean, log_std, batch["action"])
@@ -242,13 +340,21 @@ class PPOTrainer:
         if cfg.algo == "dppo":
             # dual clip: bound how negative the objective can get for adv < 0
             pg = torch.where(adv < 0, torch.maximum(pg, cfg.dual_clip * adv), pg)
-        return self._total(pg, value, log_std, batch)
+        return self._total(pg, value, log_std, batch, rows)
 
-    def _total(self, pg, value, log_std, batch):
+    def _total(self, pg, value, log_std, batch, rows=None):
+        """The loss of a minibatch. `rows`: sharded, the global minibatch's
+        row count, over which this rank's rows' terms are summed; the
+        entropy term, which belongs to no row, is divided by the ranks."""
         cfg = self.cfg
-        pg_loss = -pg.mean()
-        v_loss = 0.5 * ((value - batch["ret"]) ** 2).mean()
         entropy = (log_std + 0.5 * math.log(2 * math.pi * math.e)).sum()
+        if rows is None:
+            pg_loss = -pg.mean()
+            v_loss = 0.5 * ((value - batch["ret"]) ** 2).mean()
+        else:
+            pg_loss = -pg.sum() / (rows * math.prod(pg.shape[1:]))
+            v_loss = 0.5 * ((value - batch["ret"]) ** 2).sum() / (rows * math.prod(value.shape[1:]))
+            entropy = entropy / self.mesh.world
         loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
         return loss, dict(pg_loss=pg_loss, v_loss=v_loss, entropy=entropy)
 
@@ -264,14 +370,26 @@ class PPOTrainer:
         """EMA-refresh the return stats (population variance, as jnp.var);
         returns (mean, var, normaliser)."""
         b = self.cfg.valuenorm_beta
-        new_mean = b * ts.ret_mean + (1 - b) * returns.mean()
-        new_var = b * ts.ret_var + (1 - b) * returns.var(correction=0)
+        mean = self._mean(returns)
+        new_mean = b * ts.ret_mean + (1 - b) * mean
+        new_var = b * ts.ret_var + (1 - b) * self._var(returns, mean)
         return new_mean, new_var, lambda r: (r - new_mean) / torch.sqrt(new_var + 1e-8)
 
-    @staticmethod
-    def _normalize_adv(advs):
+    def _normalize_adv(self, advs):
         """Zero mean, unit population standard deviation (as jnp.std)."""
-        return (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+        mean = self._mean(advs)
+        return (advs - mean) / (torch.sqrt(self._var(advs, mean)) + 1e-8)
+
+    def _local_rows(self, idx, n_local):
+        """This rank's rows, in local indices, of the global row indices idx.
+        Rows lie (T, E, k) in order (k rows an env-step: the agents, or 1
+        for MAT's); this rank holds envs [start, stop) of the E."""
+        start, stop, total = self.env_slice
+        k = n_local // (self.cfg.rollout_len * self.E)
+        t, rem = idx // (total * k), idx % (total * k)
+        e, j = rem // k, rem % k
+        mine = (e >= start) & (e < stop)
+        return (t * (self.E * k) + (e - start) * k + j)[mine]
 
     def _batch(self, traj, advs, ret):
         """Minibatch rows (T*E*A, ...) of the controlled agents."""
@@ -287,7 +405,8 @@ class PPOTrainer:
         """ppo_epochs epochs of num_minibatches clipped Adam steps, each epoch
         over a fresh permutation ("perm"). -> (params, opt_state, mean loss)."""
         cfg = self.cfg
-        n = batch["adv"].shape[0]
+        n_local = batch["adv"].shape[0]
+        n = n_local * (self.mesh.world if self.mesh else 1)   # global rows
         mb = n // cfg.num_minibatches
         epoch_losses = []
         for e in range(cfg.ppo_epochs):
@@ -296,14 +415,27 @@ class PPOTrainer:
             losses = []
             for i in range(cfg.num_minibatches):
                 idx = perm[i * mb:(i + 1) * mb]
+                if self.mesh is not None:
+                    idx = self._local_rows(idx, n_local)
                 sub = {k: v[idx] for k, v in batch.items()}
                 leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-                loss, _ = self._loss(leaves, sub)
+                loss, _ = self._loss(leaves, sub, rows=mb if self.mesh else None)
                 grads = torch.autograd.grad(loss, list(leaves.values()))
+                if self.mesh is not None:
+                    grads = self._sum_grads(grads)
                 params, opt_state = self.tx.step(params, dict(zip(leaves, grads)), opt_state)
                 losses.append(loss.detach())
             epoch_losses.append(torch.stack(losses).mean())
-        return params, opt_state, torch.stack(epoch_losses).mean()
+        return params, opt_state, self._sum(torch.stack(epoch_losses).mean())
+
+    def _sum_grads(self, grads):
+        """The gradients summed over the ranks: one all-reduce of them all."""
+        flat = self._sum(torch.cat([g.reshape(-1) for g in grads]))
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        return out
 
     def _learn(self, ts: TrainState, rollout, given=None):
         """The update's second half, from a rollout's
@@ -323,9 +455,9 @@ class PPOTrainer:
         params, opt_state, loss = self._sgd(ts.params, ts.opt_state,
                                             self._batch(traj, advs, ret_for_loss),
                                             ts.generator, given)
-        metrics = dict(loss=loss, reward_mean=traj["reward"].mean(),
-                       value_mean=traj["value"].mean(),
-                       done_frac=traj["done"].to(torch.float32).mean())
+        metrics = dict(loss=loss, reward_mean=self._mean(traj["reward"]),
+                       value_mean=self._mean(traj["value"]),
+                       done_frac=self._mean(traj["done"].to(torch.float32)))
         ts = replace(ts, params=params, opt_state=opt_state, env_state=env_state,
                      update_count=ts.update_count + 1, ep_acc=ep_acc, rnn_h=rnn_h,
                      ret_mean=ret_mean, ret_var=ret_var)

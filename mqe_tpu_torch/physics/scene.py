@@ -13,6 +13,14 @@ substep of the robots, then of the NPCs. The sphere FK, the full FK and the
 dynamics substep are the entry points of physics/fused_step.py: CUDA kernels
 for CUDA tensors, their plain versions (physics/soa.py) for CPU tensors.
 
+`substep` is the counterpart of the JAX package's `scene.substep` under
+`vmap`, the array-of-structures (AoS) path a `SceneModel` with
+`use_soa=False` runs: the same contact functions, then the per-tree 6x6
+spatial dynamics of physics/dynamics.py and star_dynamics.py and
+physics/integrator.py. It launches none of the kernels and calls nothing of
+physics/soa.py, so it checks the SoA path and its kernels by a second
+derivation.
+
 Actor layout: agents first, then NPCs; per-agent tensors carry (E, A, ...),
 per-NPC tensors (E, N, ...).
 """
@@ -24,12 +32,15 @@ import numpy as np
 import torch
 
 from mqe_tpu_torch.physics import contact as C
+from mqe_tpu_torch.physics import dynamics, integrator, spatial
 from mqe_tpu_torch.physics.fused_step import (
     fk_full_kernel,
     fk_spheres_kernel,
     step_actor_kernel,
 )
 from mqe_tpu_torch.physics.model import PRIM_BOX, PRIM_SPHERE, BodyModel
+from mqe_tpu_torch.physics.spatial import mv
+from mqe_tpu_torch.physics.star_dynamics import forward_dynamics_star, star_layout
 
 
 @dataclass
@@ -94,6 +105,9 @@ class SceneModel:
     npc_root_free: bool = True
     contact: C.ContactParams = C.DEFAULT_PARAMS
     self_collision: bool = True
+    # the SoA dynamics (physics/soa.py and its CUDA kernels) through
+    # substep_batch; False runs `substep`, the AoS reference path
+    use_soa: bool = True
     # ground height when the heightfield is constant (every predefined task):
     # analytic plane contact. None = sample the heightfield.
     flat_height: float | None = None
@@ -337,6 +351,193 @@ def substep_batch(scene: SceneModel, terrain: Terrain, state: PhysState, tau,
     else:
         new_npcs = state.npcs
         nsph_f = torch.zeros((E, 0, 0, 3), dtype=sph_x_f.dtype, device=dev)
+
+    fi = torch.as_tensor(scene.foot_sphere_indices(), device=dev)
+    contacts = Contacts(sphere_force=force, npc_sphere_force=nsph_f, feet_force=force[:, :, fi])
+    return PhysState(agents=new_agents, npcs=new_npcs), contacts
+
+
+# ---------------------------------------------------------------------------
+# the AoS reference path (use_soa=False): per-tree 6x6 spatial dynamics
+# ---------------------------------------------------------------------------
+
+_SPH_ONEHOT_CACHE: dict = {}
+
+
+def _sphere_onehot(model: BodyModel, like) -> torch.Tensor:
+    """(nb, ns) constant 0/1 matrix mapping spheres to their bodies."""
+    key = (id(model), like.dtype, str(like.device))
+    hit = _SPH_ONEHOT_CACHE.get(key)
+    if hit is None or hit[0] is not model:
+        m = np.zeros((model.nb, len(model.sph_tags)), dtype=np.float32)
+        m[model.sph_body, np.arange(len(model.sph_tags))] = 1.0
+        # the model is kept beside its matrix so that its id is not reused
+        hit = (model, torch.as_tensor(m, dtype=like.dtype, device=like.device))
+        _SPH_ONEHOT_CACHE[key] = hit
+    return hit[1]
+
+
+def _sphere_world(model: BodyModel, Rw, pw, vw):
+    """World position and velocity of each collision sphere.
+
+    Rw (..., nb, 3, 3), pw (..., nb, 3), vw (..., nb, 6). Returns (..., ns, 3)
+    twice. Each sphere's body pose is gathered by index, where the JAX
+    package multiplies by the one-hot matrix: the same values.
+    """
+    b = torch.as_tensor(model.sph_body, dtype=torch.int64, device=pw.device)
+    Rb = Rw[..., b, :, :]
+    pb = pw[..., b, :]
+    x = pb + mv(Rb, torch.as_tensor(model.sph_pos, dtype=pw.dtype, device=pw.device))
+    w = vw[..., b, :3]
+    v0 = vw[..., b, 3:]
+    v = v0 + torch.linalg.cross(w, x - pb, dim=-1)
+    return x, v
+
+
+def _accumulate_wrench(model: BodyModel, pw, sph_x, force):
+    """Per-sphere world forces -> per-body world wrench about the body origin.
+
+    pw (..., nb, 3); sph_x, force (..., ns, 3). Returns (..., nb, 6). Summed
+    over each body's spheres by the one-hot matrix product, as JAX sums.
+    """
+    M = _sphere_onehot(model, force)
+    b = torch.as_tensor(model.sph_body, dtype=torch.int64, device=pw.device)
+    arm = sph_x - pw[..., b, :]
+    torque = torch.linalg.cross(arm, force, dim=-1)
+    return torch.cat([M @ torque, M @ force], dim=-1)
+
+
+def _gravity_wrench(model: BodyModel, Rw, payload=None, com_shift=None, g=-9.81):
+    """(..., nb, 6) gravity wrench per body (world, about the body origin);
+    payload (...,) and com_shift (..., 3) change the trunk's mass and com."""
+    batch = Rw.shape[:-3]
+    c = lambda x: torch.as_tensor(x, dtype=Rw.dtype, device=Rw.device)  # noqa: E731
+    mass = c(model.mass).expand(batch + (model.nb,))
+    com = c(model.com).expand(batch + (model.nb, 3))
+    if payload is not None:
+        mass = torch.cat([(mass[..., 0] + payload)[..., None], mass[..., 1:]], dim=-1)
+    if com_shift is not None:
+        com = torch.cat([(com[..., 0, :] + com_shift)[..., None, :], com[..., 1:, :]], dim=-2)
+    com_w = mv(Rw, com)
+    f = torch.zeros_like(com_w)
+    f[..., 2] = mass * g
+    n = torch.linalg.cross(com_w, f, dim=-1)
+    return torch.cat([n, f], dim=-1)
+
+
+def _spatial_inertias(model: BodyModel, payload, com_shift):
+    """(..., nb, 6, 6) spatial inertias with the trunk's DR-modified one."""
+    c = lambda x: torch.as_tensor(x, dtype=payload.dtype, device=payload.device)  # noqa: E731
+    Ispat = c(model.spatial_inertia)
+    m0 = c(model.mass[0]) + payload
+    com0 = c(model.com[0]) + com_shift
+    I0 = spatial.spatial_inertia(m0, com0, c(model.inertia[0]).expand(com0.shape[:-1] + (3, 3)))
+    rest = Ispat[1:].expand(payload.shape + Ispat[1:].shape)
+    return torch.cat([I0[..., None, :, :], rest], dim=-3)
+
+
+def _tree_kinematics(model: BodyModel, st: ActorState):
+    """FK and world velocities of actor trees: (Rw, pw, vw)."""
+    Rw, pw, X_up, S_, _, _ = dynamics.kinematics(model, st.pos, st.quat, st.q)
+    _, vw = dynamics.body_velocities(model, Rw, X_up, S_, st.lin_vel, st.ang_vel, st.qd)
+    return Rw, pw, vw
+
+
+def substep(scene: SceneModel, terrain: Terrain, state: PhysState, tau, dr: DomainRand,
+            dt: float, npc_tau=None):
+    """One physics substep for the whole env batch by the AoS formulation.
+
+    The counterpart of the JAX package's `scene.substep` vmapped over the env
+    axis: the same arguments and returns as `substep_batch`. Contact is
+    `substep_batch`'s (the functions of this module); the robots' dynamics
+    is `forward_dynamics_star` when their tree is a star of equal chains,
+    else `dynamics.forward_dynamics`; the NPCs' is `forward_dynamics`, with
+    the base's accelerations zeroed when `npc_root_free` is off.
+    """
+    robot = scene.robot
+    A = scene.num_agents
+    N = scene.num_npcs
+    params = scene.contact
+    ag = state.agents
+    E = ag.pos.shape[0]
+    ns = len(robot.sph_tags)
+    dev = ag.pos.device
+
+    # ---- agent kinematics ----
+    Rw, pw, vw = _tree_kinematics(robot, ag)
+    sph_x, sph_v = _sphere_world(robot, Rw, pw, vw)       # (E, A, ns, 3)
+    sph_r = torch.as_tensor(robot.sph_radius, dtype=sph_x.dtype, device=dev)
+
+    # ---- NPC kinematics ----
+    npc = scene.npc
+    if N > 0:
+        nc = state.npcs
+        ns_n = len(npc.sph_tags)
+        nRw, npw, nvw = _tree_kinematics(npc, nc)
+        nsph_x, nsph_v = _sphere_world(npc, nRw, npw, nvw)
+        nsph_r = torch.as_tensor(npc.sph_radius, dtype=sph_x.dtype, device=dev)
+
+    # ---- contact forces on the agent spheres ----
+    sx = sph_x.reshape(E, A * ns, 3)
+    sv = sph_v.reshape(E, A * ns, 3)
+    flat_r = sph_r.repeat(A)
+    force = _terrain_and_box_force(sx, sv, flat_r, terrain, params, dr.mu_scale,
+                                   scene.flat_height)
+    if N > 0:
+        f_npc, npc_wrench = _npc_prim_force(scene, sx, sv, flat_r, nRw, npw, nvw, params,
+                                            dr.mu_scale)
+        force = force + f_npc
+        # NPC spheres vs the ground and the wall boxes, then each other
+        nfx = nsph_x.reshape(E, N * ns_n, 3)
+        nfv = nsph_v.reshape(E, N * ns_n, 3)
+        nfr = nsph_r.repeat(N)
+        nsph_f = _terrain_and_box_force(nfx, nfv, nfr, terrain, params, dr.mu_scale,
+                                        scene.flat_height)
+        if N > 1:
+            inst = torch.arange(N, device=dev).repeat_interleave(ns_n)
+            nsph_f = nsph_f + _sphere_pairs(nfx, nfv, nfr, inst, params, dr.mu_scale)
+        nsph_f = nsph_f.reshape(E, N, ns_n, 3)
+
+    # ---- agent-agent collision (coarse spheres) ----
+    if A > 1 and scene.self_collision:
+        ci = torch.as_tensor(scene.coarse_sphere_indices(), device=dev)
+        nc_ = ci.shape[0]
+        cx = sph_x[:, :, ci].reshape(E, A * nc_, 3)
+        cv = sph_v[:, :, ci].reshape(E, A * nc_, 3)
+        inst = torch.arange(A, device=dev).repeat_interleave(nc_)
+        fcoarse = _sphere_pairs(cx, cv, sph_r[ci].repeat(A), inst, params,
+                                dr.mu_scale).reshape(E, A, nc_, 3)
+        force = force.reshape(E, A, ns, 3).index_add(2, ci, fcoarse)
+    force = force.reshape(E, A, ns, 3)
+
+    # ---- agent dynamics ----
+    robot_fd = (forward_dynamics_star if star_layout(robot) is not None
+                else dynamics.forward_dynamics)
+    Ispat = _spatial_inertias(robot, dr.payload, dr.com_shift)
+    wrench = _accumulate_wrench(robot, pw, sph_x, force)
+    wrench = wrench + _gravity_wrench(robot, Rw, dr.payload, dr.com_shift)
+    wd, ad, qdd, _ = robot_fd(robot, Ispat, ag.pos, ag.quat, ag.lin_vel, ag.ang_vel, ag.q,
+                              ag.qd, tau, wrench)
+    new_agents = ActorState(*integrator.integrate(
+        robot, ag.pos, ag.quat, ag.lin_vel, ag.ang_vel, ag.q, ag.qd, wd, ad, qdd, dt))
+
+    # ---- NPC dynamics ----
+    if N > 0:
+        if npc_tau is None:
+            npc_tau = torch.zeros((E, N, npc.nq), dtype=sph_x.dtype, device=dev)
+        nIspat = torch.as_tensor(npc.spatial_inertia, dtype=sph_x.dtype, device=dev)
+        nwrench = _accumulate_wrench(npc, npw, nsph_x, nsph_f)
+        nwrench = nwrench + npc_wrench + _gravity_wrench(npc, nRw)
+        nwd, nad, nqdd, _ = dynamics.forward_dynamics(
+            npc, nIspat, nc.pos, nc.quat, nc.lin_vel, nc.ang_vel, nc.q, nc.qd, npc_tau, nwrench)
+        if not scene.npc_root_free:
+            nwd = torch.zeros_like(nwd)
+            nad = torch.zeros_like(nad)
+        new_npcs = ActorState(*integrator.integrate(
+            npc, nc.pos, nc.quat, nc.lin_vel, nc.ang_vel, nc.q, nc.qd, nwd, nad, nqdd, dt))
+    else:
+        new_npcs = state.npcs
+        nsph_f = torch.zeros((E, 0, 0, 3), dtype=sph_x.dtype, device=dev)
 
     fi = torch.as_tensor(scene.foot_sphere_indices(), device=dev)
     contacts = Contacts(sphere_force=force, npc_sphere_force=nsph_f, feet_force=force[:, :, fi])

@@ -49,6 +49,11 @@ def test_port_modules_import_without_jax():
     # the modules of the locomotion slice among them
     assert {"mqe_tpu_torch.learn.locomotion_env", "mqe_tpu_torch.learn.train_locomotion",
             "mqe_tpu_torch.envs.gym_adapter", "mqe_tpu_torch.scripts.demo"} <= set(expected)
+    # the AoS reference physics, the URDF compiler and the env-axis split
+    assert {"mqe_tpu_torch.physics.dynamics", "mqe_tpu_torch.physics.star_dynamics",
+            "mqe_tpu_torch.physics.integrator", "mqe_tpu_torch.physics.spatial",
+            "mqe_tpu_torch.physics.urdf", "mqe_tpu_torch.parallel",
+            "mqe_tpu_torch.parallel.mesh", "mqe_tpu_torch.parallel.worker"} <= set(expected)
 
 
 def _imported_roots(path):

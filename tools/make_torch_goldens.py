@@ -300,8 +300,9 @@ STATIC_CASES = {"wrestling-ring": ("go1wrestling", "", _wrestling_state),
                 "football-ball": ("go1football-2vs2", "", _ball_state)}
 
 
-def record_npc_substep(cases=tuple(NPC_CASES), table=NPC_CASES) -> dict:
-    """The record of one JAX `substep_batch` for each of `cases` of `table`."""
+def record_npc_substep(cases=tuple(NPC_CASES), table=NPC_CASES, substep=None) -> dict:
+    """The record of one JAX `substep_batch` for each of `cases` of `table`
+    (or of `substep(jscene, env, state, tau, npc_tau, dr, dt)`)."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -336,8 +337,12 @@ def record_npc_substep(cases=tuple(NPC_CASES), table=NPC_CASES) -> dict:
                             com_shift=jnp.asarray(ex["com"]), motor_strength=jnp.ones((E, A, 12)))
         jterrain = JS.Terrain(height=env.hf, origin=env.hf_origin, scale=env.hf_scale,
                               boxes=env.env_boxes, static_geoms=env.static_geoms)
-        jnew, jc = JS.substep_batch(jscene, jterrain, jstate, jnp.asarray(tau),
-                                    jnp.asarray(npc_tau), jdr, dt)
+        if substep is None:
+            jnew, jc = JS.substep_batch(jscene, jterrain, jstate, jnp.asarray(tau),
+                                        jnp.asarray(npc_tau), jdr, dt)
+        else:
+            jnew, jc = substep(jscene, env, jstate, jnp.asarray(tau), jnp.asarray(npc_tau),
+                               jdr, dt)
         rec[f"{case}/task"], rec[f"{case}/npc"] = np.array(task), np.array(npc_name)
         rec[f"{case}/dt"] = np.array(dt)
         rec[f"{case}/tau"], rec[f"{case}/npc_tau"] = tau, npc_tau
@@ -1391,6 +1396,281 @@ def record_mpc() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the AoS reference physics (torch_dynamics.npz, torch_aos_substep.npz,
+# torch_go1gate_aos_step.npz)
+# ---------------------------------------------------------------------------
+
+# body models of the dynamics record: (asset, root_free), B trees each
+DYN_MODELS = (("go1", True), ("box", True), ("seesaw", False), ("rotation_door", False),
+              ("cylinder", True))
+DYN_B = 6
+
+
+def _dyn_inputs(m, rng):
+    """A batch of DYN_B random states, torques and world wrenches of model m."""
+    B = DYN_B
+    qt = rng.randn(B, 4) * 0.3 + np.array([0, 0, 0, 1.0])
+    lo, hi = m.q_lower, m.q_upper
+    mid = np.where(np.isfinite(lo) & np.isfinite(hi), np.clip((lo + hi) / 2, -1.0, 1.0), 0.0)
+    d = dict(pos=rng.randn(B, 3) * 0.2 + np.array([0, 0, 0.4]),
+             quat=qt / np.linalg.norm(qt, axis=1, keepdims=True),
+             lin_vel=rng.randn(B, 3) * 0.5, ang_vel=rng.randn(B, 3) * 0.5,
+             q=mid + rng.randn(B, m.nq) * 0.3, qd=rng.randn(B, m.nq) * 1.0,
+             tau=rng.randn(B, m.nq) * 3.0, f_ext=rng.randn(B, m.nb, 6) * 5.0,
+             payload=rng.rand(B) * 2.0, com_shift=rng.randn(B, 3) * 0.02)
+    return {k: v.astype(np.float32) for k, v in d.items()}
+
+
+def record_dynamics() -> dict:
+    """The JAX AoS dynamics on random inputs, op by op under vmap:
+    "<model>/in/<name>" the inputs, "<model>/fd/<out>" `forward_dynamics`
+    (omega_dot_w, a_lin_w, qdd, Rw, pw, vw) with the trunk's spatial
+    inertia changed by payload and com_shift as `scene._spatial_inertias`
+    does, "<model>/star/<out>" `forward_dynamics_star` where `star_layout`
+    accepts the model, "<model>/momentum/{ang,lin}" `total_momentum`,
+    "<model>/int/<field>" `integrate` of the state by the fd result at
+    dt 0.005 (the state's q pushed past the joint limits in half the rows,
+    so the clamps act); "solve/{A,b,x}" `solve_spd6` on SPD matrices and on
+    matrices that are not positive definite (rows 4-7: a zero, a negative
+    and a rank-deficient pivot), "gravity/..." `scene._gravity_wrench` and
+    "spheres/..." `scene._sphere_world` and `_accumulate_wrench` of go1."""
+    import jax.numpy as jnp
+
+    from mqe_tpu.physics import dynamics, integrator, spatial
+    from mqe_tpu.physics import scene as JS
+    from mqe_tpu.physics.model import load_model
+    from mqe_tpu.physics.star_dynamics import forward_dynamics_star, star_layout
+
+    rng = np.random.RandomState(21)
+    rec = {}
+    for name, root_free in DYN_MODELS:
+        m = load_model(name, root_free=root_free)
+        d = _dyn_inputs(m, rng)
+        j = {k: jnp.asarray(v) for k, v in d.items()}
+        Isp = jax.vmap(lambda p, c: JS._spatial_inertias(m, p, c))(j["payload"], j["com_shift"])
+        args = (j["pos"], j["quat"], j["lin_vel"], j["ang_vel"], j["q"], j["qd"], j["tau"],
+                j["f_ext"])
+        rec.update({f"{name}/in/{k}": v for k, v in d.items()})
+        fds = {"fd": dynamics.forward_dynamics}
+        if star_layout(m) is not None:
+            fds["star"] = forward_dynamics_star
+        for tag, fd in fds.items():
+            wd, ad, qdd, (Rw, pw, vw) = jax.vmap(lambda I, *a: fd(m, I, *a))(Isp, *args)
+            for k, v in dict(wd=wd, ad=ad, qdd=qdd, Rw=Rw, pw=pw, vw=vw).items():
+                rec[f"{name}/{tag}/{k}"] = np.asarray(v)
+        h_ang, h_lin = jax.vmap(lambda I, *a: dynamics.total_momentum(m, I, *a))(
+            Isp, *args[:6])
+        rec[f"{name}/momentum/ang"], rec[f"{name}/momentum/lin"] = (np.asarray(h_ang),
+                                                                   np.asarray(h_lin))
+        past = np.where(rng.rand(DYN_B, m.nq) < 0.5, m.q_lower - 0.05, m.q_upper + 0.05)
+        q_int = np.where((np.arange(DYN_B)[:, None] % 2 == 1) & (np.abs(past) < 20.0), past,
+                         d["q"]).astype(np.float32)
+        rec[f"{name}/in/q_int"] = q_int
+        out = jax.vmap(lambda *a: integrator.integrate(m, *a, 0.005))(
+            j["pos"], j["quat"], j["lin_vel"], j["ang_vel"], jnp.asarray(q_int), j["qd"],
+            jnp.asarray(rec[f"{name}/fd/wd"]), jnp.asarray(rec[f"{name}/fd/ad"]),
+            jnp.asarray(rec[f"{name}/fd/qdd"]))
+        for k, v in zip(ACTOR_FIELDS, out):
+            rec[f"{name}/int/{k}"] = np.asarray(v)
+    # solve_spd6: SPD, then a zero, a negative and a rank-deficient pivot
+    G = rng.randn(8, 6, 6)
+    A = G @ np.swapaxes(G, 1, 2) + 0.5 * np.eye(6)
+    A[4, 0, :] = A[4, :, 0] = 0.0
+    A[5, 2, 2] = -3.0
+    v = rng.randn(6)
+    A[6] = np.outer(v, v) + np.diag([1.0, 1.0, 0.0, 1.0, 1.0, 1.0])
+    A[7] = -np.eye(6)
+    b = rng.randn(8, 6)
+    A, b = A.astype(np.float32), b.astype(np.float32)
+    rec.update({"solve/A": A, "solve/b": b,
+                "solve/x": np.asarray(spatial.solve_spd6(jnp.asarray(A), jnp.asarray(b)))})
+    # the scene's per-tree helpers on go1 (FK of the first model's inputs)
+    m = load_model("go1")
+    d = {k[len("go1/in/"):]: v for k, v in rec.items() if k.startswith("go1/in/")}
+    Rw, pw, vw = (jnp.asarray(rec[f"go1/fd/{k}"]) for k in ("Rw", "pw", "vw"))
+    sx, sv = jax.vmap(lambda R, p, w: JS._sphere_world(m, R, p, w))(Rw, pw, vw)
+    f = rng.randn(*sx.shape).astype(np.float32) * 5.0
+    wr = jax.vmap(lambda p, x, ff: JS._accumulate_wrench(m, p, x, ff))(pw, sx, jnp.asarray(f))
+    grav = jax.vmap(lambda R, p, c: JS._gravity_wrench(m, R, p, c))(
+        Rw, jnp.asarray(d["payload"]), jnp.asarray(d["com_shift"]))
+    rec.update({"spheres/x": np.asarray(sx), "spheres/v": np.asarray(sv), "spheres/force": f,
+                "spheres/wrench": np.asarray(wr), "gravity/wrench": np.asarray(grav)})
+    return rec
+
+
+def _gate_state(env, rng):
+    """go1gate: env 0's robot 0 backed into the first wall box, env 1's two
+    robots side by side with their coarse spheres overlapping."""
+    ag = _agents(env, rng)
+    box = np.asarray(env.env_boxes)[0, 0]                   # center(3), half(3), valid
+    ag["pos"][0, 0] = [box[0] + box[3] + 0.15, box[1] - 0.5, 0.30]
+    ag["pos"][1, 1, :2] = ag["pos"][1, 0, :2] + np.array([0.05, 0.15])
+    return ag, _npcs(np.zeros((NUM_ENVS, 0, 3)), np.zeros((NUM_ENVS, 0, 0)),
+                     np.zeros((NUM_ENVS, 0, 0)), rng)
+
+
+def _sheep_state(env, rng):
+    """go1sheep-hard: the flock where the env puts it, sheep 1 pressed into
+    sheep 0 and robot 0 into sheep 2 (NPC pairs and robot-NPC contact)."""
+    ag = _agents(env, rng)
+    N = env.scene.num_npcs
+    pos = (np.asarray(env.npc_init)[None, :, :3]
+           + np.asarray(env.env_origins)[:, None] * [1, 1, 0]).astype(np.float64)
+    pos[..., 2] = 0.19
+    pos[:, 1] = pos[:, 0] + np.array([0.3, 0.05, 0.0])
+    ag["pos"][:, 0] = pos[:, 2] + np.array([-0.55, 0.0, 0.11])
+    z = np.zeros((NUM_ENVS, N, 0))
+    return ag, _npcs(pos, z, z, rng)
+
+
+AOS_CASES = {"gate": ("go1gate", "", _gate_state),
+             "pushbox": ("go1pushbox", "", _pushbox_state),
+             "seesaw": ("go1seesaw", "", _seesaw_state),
+             "wrestling-ring": ("go1wrestling", "", _wrestling_state),
+             "sheep-hard": ("go1sheep-hard", "", _sheep_state)}
+
+
+def _aos_substep(jscene, env, jstate, tau, npc_tau, jdr, dt):
+    """JAX's AoS substep vmapped over the env axis, each env on its own
+    boxes and static geoms (go1_env.py's `use_soa=False` branch)."""
+    from mqe_tpu.physics import scene as JS
+
+    def one(phys, tau_e, npc_tau_e, dr_e, boxes_e, sg_e):
+        t = JS.Terrain(height=env.hf, origin=env.hf_origin, scale=env.hf_scale,
+                       boxes=boxes_e, static_geoms=sg_e)
+        return JS.substep(jscene, t, phys, tau_e, npc_tau_e, dr_e, dt)
+
+    return jax.vmap(one)(jstate, tau, npc_tau, jdr, env.env_boxes, env.static_geoms)
+
+
+def record_aos_substep() -> dict:
+    """torch_npc_substep.npz's record for `AOS_CASES`, by JAX's AoS
+    `scene.substep` under vmap (op by op, no jit)."""
+    return record_npc_substep(tuple(AOS_CASES), AOS_CASES, substep=_aos_substep)
+
+
+def record_aos_step() -> dict:
+    """One go1gate control step with `use_soa=False` from the "in-contact"
+    start of torch_go1gate_step.npz (the same warm-up, then a wrapper whose
+    scene is the AoS one traces its step)."""
+    import dataclasses
+
+    from mqe_tpu.envs.registry import make_mqe_env
+
+    rec = record("go1gate", ("in-contact",))
+    wrap, _ = make_mqe_env("go1gate", num_envs=NUM_ENVS, seed=0)
+    object.__setattr__(wrap.env, "scene", dataclasses.replace(wrap.env.scene, use_soa=False))
+    ts0 = _unflat_like(wrap.reset(jax.random.PRNGKey(0))[0], rec, "in-contact/start")
+    ts1, obs, rew, done, _ = wrap.step(ts0, rec["in-contact/actions"], jax.random.PRNGKey(7))
+    out = {k: v for k, v in rec.items() if k.startswith("in-contact/start")
+           or k == "in-contact/actions"}
+    out.update(_flat("in-contact/out", ts1))
+    out.update({"in-contact/obs": np.asarray(obs), "in-contact/reward": np.asarray(rew),
+                "in-contact/done": np.asarray(done)})
+    return out
+
+
+def _unflat_like(tree, rec, prefix):
+    """`tree` with its leaves replaced by rec's "<prefix>/<path>" arrays."""
+    import jax.numpy as jnp
+
+    paths, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    leaves = []
+    for path, _ in paths:
+        names = [str(getattr(k, "name", getattr(k, "key", k))) for k in path]
+        leaves.append(jnp.asarray(rec["/".join([prefix] + names)]))
+    return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's trajectory goldens, their starts and draws
+# (torch_golden_traj.npz)
+# ---------------------------------------------------------------------------
+
+def _drop_env():
+    from mqe_tpu.envs.go1_env import Go1Env
+    from mqe_tpu.envs.tasks import Go1PlaneCfg
+
+    class DropCfg(Go1PlaneCfg):
+        class init_state(Go1PlaneCfg.init_state):
+            pos = [0.0, 0.0, 0.62]
+
+        class domain_rand(Go1PlaneCfg.domain_rand):
+            init_base_pos_range = dict(x=[0.0, 0.0], y=[0.0, 0.0])
+            init_base_vel_range = [0.0, 0.0]
+            init_dof_pos_ratio_range = [1.0, 1.0]
+
+        class termination(Go1PlaneCfg.termination):
+            termination_terms = []
+
+    return Go1Env(DropCfg, num_envs=2, seed=0)
+
+
+# name: (task or "drop", steps, vx, envs), as tests/test_golden_traj.py runs them
+TRAJS = {"drop": ("drop", 60, 0.0, 2), "walk": ("go1plane", 100, 0.5, 1),
+         "push": ("go1pushbox", 80, 0.5, 2)}
+
+
+def _step_draws(env, key, E, A, N):
+    """The draws JAX's `_step_pre`/`_step_finish` take from a step key, by
+    the names the port takes them under (not "fresh": see below)."""
+    k_npc, k_push, k_reset, k_lv = jax.random.split(key, 4)
+    out = {}
+    if env.npc_behavior == "sheep":
+        out["npc_noise"] = np.asarray(jax.random.normal(k_npc, (E, N, 3)))
+    if env.cfg.domain_rand.push_robots:
+        mv = env.cfg.domain_rand.max_push_vel_xy
+        out["push_vel"] = np.asarray(jax.random.uniform(k_push, (E, A, 2), minval=-mv,
+                                                        maxval=mv))
+    if env.curriculum:
+        out["curr_level"] = np.asarray(jax.random.randint(k_lv, (E,), 0, env.num_levels))
+    return out, k_reset
+
+
+def record_golden_traj() -> dict:
+    """For each of `TRAJS`, what tests/test_golden_traj.py runs: "<name>/start/..."
+    the reset state of PRNGKey(42) (the wrapper's TaskState, or the env's
+    EnvState for "drop"); per step t the draws the step takes
+    ("<name>/draw/<t>/<draw>"), the step's done flags ("<name>/done", (T, E)),
+    and for a step in which an env is done the reset state it takes
+    ("<name>/fresh/<t>/..."). The step keys are split from PRNGKey(1) for
+    "drop" and from PRNGKey(42) for the others, as the goldens were."""
+    import jax.numpy as jnp
+
+    from mqe_tpu.envs import make_mqe_env
+
+    rec = {}
+    for name, (task, steps, vx, E) in TRAJS.items():
+        if task == "drop":
+            env = _drop_env()
+            ts = env._reset_all(jax.random.PRNGKey(42))
+            key = jax.random.PRNGKey(1)
+            A = env.num_agents
+            cmds = jnp.zeros((E, A, 3))
+            step = jax.jit(lambda s, k: env._step(s, cmds, k)[::2])
+        else:
+            wrap, _ = make_mqe_env(task, num_envs=E, seed=0)
+            key = jax.random.PRNGKey(42)
+            ts, _ = wrap.reset(key)
+            env = wrap.env
+            A = getattr(wrap, "controlled_agents", wrap.num_agents)
+            acts = jnp.zeros((E, A, 3)).at[..., 0].set(vx)
+            step = jax.jit(lambda s, k: wrap._step_impl(s, acts, k)[::3])
+        rec.update(_flat(f"{name}/start", ts))
+        dones = []
+        for t in range(steps):
+            key, k = jax.random.split(key)
+            draws, k_reset = _step_draws(env, k, E, env.num_agents, env.num_npcs)
+            rec.update({f"{name}/draw/{t}/{d}": v for d, v in draws.items()})
+            ts, done = step(ts, k)
+            dones.append(np.asarray(done))
+            if dones[-1].any():
+                rec.update(_flat(f"{name}/fresh/{t}", env._reset_all(k_reset)))
+        rec[f"{name}/done"] = np.stack(dones)
+    return rec
+
+
 FILES = {
     "torch_go1gate_step.npz": partial(record, "go1gate", ("post-reset", "in-contact")),
     "torch_go1gate_reset_step.npz": partial(record, "go1gate", ("reset-step",)),
@@ -1427,6 +1707,10 @@ FILES = {
     "torch_terrain.npz": record_terrain,
     "torch_camera.npz": record_camera,
     "torch_mpc.npz": record_mpc,
+    "torch_dynamics.npz": record_dynamics,
+    "torch_aos_substep.npz": record_aos_substep,
+    "torch_go1gate_aos_step.npz": record_aos_step,
+    "torch_golden_traj.npz": record_golden_traj,
 }
 
 
