@@ -123,10 +123,24 @@ Phases, each printing one line with its elapsed seconds:
                in one process's order printed beside that order's own
                effect; then a one-rank NCCL group's update (gradients
                all-reduced through NCCL) at SGD_TOL.
+ 15. goldens - every step of the JAX package's drop golden (60 steps of
+               go1plane's robot released 0.62 m up, 2 envs) taken once on the
+               card from the golden's own scan state before it
+               (tests/goldens/torch_golden_steps.npz), held to the scan's
+               state after it within CHECK_TOLS, except where JAX's own step
+               nudged by one part in 10^6 breaks them too (tools/
+               golden_steps.py::judge, tests/test_torch_golden_steps.py's
+               rule), 480 + 480 launches asserted; then the 60-step replay
+               from the start, as many launches asserted, its distance from
+               the golden printed (not gated: the landing is chaotic). The
+               same on the CPU (tools/diag_drop_golden.py, one thread) runs
+               in the background from the start of the script: its replay
+               distance is printed beside the card's, and a step excused on
+               the card but not on the CPU is named.
 Then the kernels' JSON line (`launches`: the sum over the slices', the
 training updates' and the new phases' runs, by task, "train",
 "locomotion", "curriculum", "camera", "mpc", "aos" (none), "mesh" (the
-ranks') and "mesh_reference" (the unsharded runs) under
+ranks'), "mesh_reference" (the unsharded runs) and "goldens" under
 `launches_by_task`), the
 card's name and power limit, and the result line `{"ok": true, "device":
 {...}}`. Any failed phase raises (exit code 1); with no CUDA device it exits
@@ -168,6 +182,9 @@ from mqe_tpu_torch.physics.model import go1_model, load_model  # noqa: E402
 from mqe_tpu_torch.utils.convert import env_state_to, wtw_body_from_numpy  # noqa: E402
 from mqe_tpu_torch.utils.opcount import count_ops  # noqa: E402
 from mqe_tpu_torch.utils.random import Draws  # noqa: E402
+
+sys.path.insert(0, os.path.join(REPO, "tools"))
+import golden_steps  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
 # without tensor cores
@@ -1553,6 +1570,96 @@ def phase_mesh(smi, num_envs=SLICE_ENVS, dev="cuda", steps=MESH_STEPS, cfg=PPOCo
     return total
 
 
+# phase goldens: the trajectory golden whose every step is checked on the card,
+# and how long the CPU side, started at the beginning, may still take at its end
+GOLDEN, GOLDEN_CPU_TIMEOUT = "drop", 600
+
+
+def start_cpu_goldens(tmp):
+    """The CPU side of phase goldens: tools/diag_drop_golden.py on the CPU
+    (one thread, ~3 min), started in the background at the beginning so
+    that the card's phases run meanwhile, at the lowest scheduling priority
+    so that it takes no core the card's phases want; its results go to tmp."""
+    log = open(os.path.join(tmp, "goldens_cpu.log"), "w")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tools", "diag_drop_golden.py"), "--name", GOLDEN,
+             "--device", "cpu", "--json", os.path.join(tmp, "goldens_cpu.json")],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    finally:
+        log.close()
+    os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+    return proc
+
+
+def phase_goldens(smi, cpu, tmp):
+    """Every step of the golden `GOLDEN` (tests/goldens/torch_golden_steps.npz)
+    taken once by the port on the card (the kernels) from the golden's scan
+    state before it, held to the scan's state after it under
+    tests/test_torch_golden_steps.py's rule: within CHECK_TOLS (the values
+    of tests/test_torch_env.py::TOLS), or at a step and quantity where JAX's
+    own envelope is over them too (`golden_steps.judge`). The launches of
+    the one-steps and of the replay are asserted as in `slice`. The replay
+    from the start (every step from its own last) is printed, not gated: the
+    landing is chaotic. The CPU side (`start_cpu_goldens`) is waited for:
+    its replay is printed beside the card's, and a step excused on the card
+    but not on the CPU is named."""
+    rec = golden_steps.load()
+    run = golden_steps.Golden(rec, GOLDEN, "cuda")
+    steps = list(range(run.steps))
+    reset_counts()
+    t0 = time.perf_counter()
+    diffs, _ = run.one_steps(steps)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check_counts(f"goldens {GOLDEN} {run.steps} one-steps", launches, run.env, run.steps)
+    unexcused, excused = golden_steps.judge(rec, GOLDEN, steps, diffs, CHECK_TOLS)
+    if unexcused:
+        raise AssertionError(f"goldens {GOLDEN}: over CHECK_TOLS where JAX's envelope is not: "
+                             + golden_steps.describe(unexcused))
+    held = {}  # field: (difference, step), the worst where JAX's envelope is within the bound
+    for f, d in diffs.items():
+        bound = CHECK_TOLS[golden_steps.BOUND_OF.get(f, f)]
+        held[f] = max([(d[i], t) for i, t in enumerate(steps)
+                       if rec[f"{GOLDEN}/envelope/{f}"][t] <= bound], default=(0.0, None))
+    say("goldens", f"{GOLDEN}: {run.steps} one-steps on the card from the golden's scan states "
+        f"in {seconds:.2f} s, launches {launches}; every step within CHECK_TOLS or excused by "
+        f"JAX's envelope; excused: {golden_steps.describe(excused)}; worst where JAX's envelope "
+        "is within CHECK_TOLS: " + ", ".join(
+            f"{f} {v:.3e} at step {t} ({CHECK_TOLS[golden_steps.BOUND_OF.get(f, f)]:.0e})"
+            for f, (v, t) in held.items()) + f"; on {smi}")
+    reset_counts()
+    replay = run.replay()
+    replayed = read_counts()
+    check_counts(f"goldens {GOLDEN} replay", replayed, run.env, run.steps)
+    add_counts(launches, replayed)
+    try:
+        cpu.wait(timeout=GOLDEN_CPU_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"goldens: the CPU side still ran {GOLDEN_CPU_TIMEOUT} s after the "
+                             "card's phases") from None
+    out = os.path.join(tmp, "goldens_cpu.json")
+    if not os.path.exists(out):
+        with open(os.path.join(tmp, "goldens_cpu.log")) as f:
+            raise AssertionError(f"goldens: the CPU side failed (rc {cpu.returncode}):\n"
+                                 + f.read()[-3000:])
+    with open(out) as f:
+        host = json.load(f)
+    host_breaks = {(t, f) for t, f, *_ in host["excused"] + host["unexcused"]}
+    card_only = [(t, f) for t, f, *_ in excused if (t, f) not in host_breaks]
+    say("goldens", f"{GOLDEN}: excused on the card but within TOLS on the CPU: "
+        + (", ".join(f"step {t} {f}" for t, f in card_only) or "none")
+        + f"; the CPU's breaks (tools/diag_drop_golden.py): excused "
+        f"{golden_steps.describe(host['excused'])}, unexcused "
+        f"{golden_steps.describe(host['unexcused'])}")
+    say("goldens", f"{GOLDEN}: the replay from the start (measured, not gated), largest "
+        f"|base pos - golden| over the {run.steps} steps: card {replay.max():.5f} m (step "
+        f"{int(replay.argmax())}), CPU {max(host['replay']):.5f} m (step "
+        f"{int(np.argmax(host['replay']))}); replay launches {replayed}; on {smi}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1562,7 +1669,18 @@ def main():
     kind = torch.cuda.get_device_name(0)
     smi = smi_name_power()
     say("device", f"{kind}; nvidia-smi: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = start_cpu_goldens(tmp)
+        try:
+            run_phases(kind, smi, cpu, tmp)
+        finally:
+            if cpu.poll() is None:
+                cpu.kill()
+                cpu.wait()
 
+
+def run_phases(kind, smi, cpu, tmp):
+    """Every phase after `device`, then the kernels' JSON line and the result."""
     built = fused_step.library()
     say("build", f"fused_step in {built.seconds:.2f} s ({'from the cache' if built.from_cache else 'built'}): "
         f"{built.path}")
@@ -1591,6 +1709,7 @@ def main():
     by_task["aos"] = phase_aos(smi)
     mesh = phase_mesh(smi)
     by_task["mesh"], by_task["mesh_reference"] = mesh["mesh"], mesh["reference"]
+    by_task["goldens"] = phase_goldens(smi, cpu, tmp)
     for entry in entries:
         entry["launches"] = sum(counts[entry["name"]] for counts in by_task.values())
         entry["launches_by_task"] = {t: counts[entry["name"]] for t, counts in by_task.items()}

@@ -14,6 +14,7 @@ reset an env fails instead. The goldens themselves stay as they are.
 slow: the three together take over 150 s on one thread.
 """
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = os.path.join(REPO, "tests", "goldens")
+sys.path.insert(0, os.path.join(REPO, "tools"))
 
 
 @pytest.fixture(scope="module")
@@ -54,22 +56,9 @@ def _given(rec, name, t):
 
 
 def _drop_env():
-    from mqe_tpu_torch.envs.go1_env import Go1Env
-    from mqe_tpu_torch.envs.tasks import Go1PlaneCfg
+    from golden_steps import drop_env
 
-    class DropCfg(Go1PlaneCfg):
-        class init_state(Go1PlaneCfg.init_state):
-            pos = [0.0, 0.0, 0.62]
-
-        class domain_rand(Go1PlaneCfg.domain_rand):
-            init_base_pos_range = dict(x=[0.0, 0.0], y=[0.0, 0.0])
-            init_base_vel_range = [0.0, 0.0]
-            init_dof_pos_ratio_range = [1.0, 1.0]
-
-        class termination(Go1PlaneCfg.termination):
-            termination_terms = []
-
-    return Go1Env(DropCfg, num_envs=2, seed=0, device="cpu")
+    return drop_env("cpu")
 
 
 def _replay(rec, name, task, steps, vx, num_envs, record_npc=False):

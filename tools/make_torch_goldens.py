@@ -107,6 +107,11 @@ heightfield step, a step on two rows of go1gate's track), torch_camera.npz
 (`record_camera`: depth and RGB images from recorded states) and
 torch_mpc.npz (`record_mpc`: the iLQR's passes, whole solves with the step
 sizes chosen, and the costs at their hinges' kinks).
+
+The trajectory goldens (tests/test_torch_golden_traj.py,
+test_torch_golden_steps.py): torch_golden_traj.npz (`record_golden_traj`:
+their starts and draws) and torch_golden_steps.npz (`record_golden_steps`:
+their scan state by state, and JAX's own spread about each step).
 Nothing under mqe_tpu/ is written.
 """
 import os
@@ -1671,6 +1676,123 @@ def record_golden_traj() -> dict:
     return rec
 
 
+# JAX's envelope of a step (torch_golden_steps.npz): its jitted step from the
+# scan's state with the robots' qd and ang_vel scaled by (1 + REL * N(0, 1)),
+# K draws a step. REL is the size of the port's own rounding stage by stage:
+# fed JAX's input of each stage of the drop's landing step
+# (tools/diag_drop_golden.py --stages), the port's locomotion action parts
+# from JAX's by 8.9e-7 relative, each actuator-net torque by 8.1e-8 at most,
+# each `_physics` (two scene substeps) by 6.8e-6 at most in qd and 1.1e-6 in
+# ang_vel.
+ENVELOPE_DRAWS, ENVELOPE_REL = 16, 1e-6
+
+
+def _golden_run(name):
+    """The env, start state, step key and step function of the golden `name`
+    (`TRAJS`), as tools/make_goldens.py runs it, with `fn(state, key)`
+    returning (state, done) and `phys(state)` its PhysState."""
+    import jax.numpy as jnp
+
+    from mqe_tpu.envs import make_mqe_env
+
+    task, _, vx, E = TRAJS[name]
+    if task == "drop":
+        env = _drop_env()
+        cmds = jnp.zeros((E, env.num_agents, 3))
+        return (env, env._reset_all(jax.random.PRNGKey(42)), jax.random.PRNGKey(1),
+                lambda s, k: env._step(s, cmds, k)[::2], lambda s: s.phys)
+    wrap, _ = make_mqe_env(task, num_envs=E, seed=0)
+    A = getattr(wrap, "controlled_agents", wrap.num_agents)
+    acts = jnp.zeros((E, A, 3)).at[..., 0].set(vx)
+    key = jax.random.PRNGKey(42)
+    return (wrap.env, wrap.reset(key)[0], key,
+            lambda s, k: wrap._step_impl(s, acts, k)[::3], lambda s: s.env.phys)
+
+
+def _step_fields(phys):
+    out = {f: np.asarray(getattr(phys.agents, f)) for f in ACTOR_FIELDS}
+    if phys.npcs.pos.shape[-2]:
+        out["npc_pos"] = np.asarray(phys.npcs.pos)
+    return out
+
+
+def _nudged(state, phys_of, rng):
+    """`state` with the robots' qd and ang_vel scaled by (1 + REL * N(0, 1))."""
+    ag = phys_of(state).agents
+    scale = lambda x: x * (1.0 + ENVELOPE_REL * rng.standard_normal(x.shape)  # noqa: E731
+                           ).astype(np.float32)
+    ag = ag.replace(qd=scale(ag.qd), ang_vel=scale(ag.ang_vel))
+    if hasattr(state, "phys"):
+        return state.replace(phys=state.phys.replace(agents=ag))
+    return state.replace(env=state.env.replace(phys=state.env.phys.replace(agents=ag)))
+
+
+def record_golden_steps() -> dict:
+    """For each of `TRAJS`, the golden's `lax.scan` state by state, and JAX's
+    own spread about each of its steps (tests/test_torch_golden_steps.py).
+    The scan is tools/make_goldens.py's (same starts and step keys as
+    `record_golden_traj`), its body returning the whole state, whose robots
+    are checked equal to the golden's pos, quat and q at every step. Per run
+    `name` of T steps:
+      - "<name>/state/...": (T, ...) the states the steps leave from (the
+        start, then the scan's first T - 1; the EnvState for "drop", the
+        TaskState for the others);
+      - "<name>/after/<field>": (T, E, A, ...) the robots' `ACTOR_FIELDS`
+        after step t, and "npc_pos" with NPCs;
+      - "<name>/envelope/<field>": (T,) the largest difference from "after"
+        of JAX's jitted step from state t nudged (`_nudged`) over
+        ENVELOPE_DRAWS draws of np.random.default_rng(0);
+      - "<name>/jit/<field>": (T,) the same of JAX's jitted step from state t
+        not nudged: nearly the scan's own arithmetic, so no measure of
+        rounding (tools/diag_drop_golden.py prints it as such);
+      - "<name>/draw/<t>/<draw>" and "<name>/done" as in `record_golden_traj`.
+    """
+    import jax.numpy as jnp
+
+    rec = {"envelope_draws": np.int64(ENVELOPE_DRAWS), "envelope_rel": np.float64(ENVELOPE_REL)}
+    for name, (_, steps, _, E) in TRAJS.items():
+        env, start, key, fn, phys_of = _golden_run(name)
+
+        def body(carry, _):
+            s, k0 = carry
+            k0, k = jax.random.split(k0)
+            s, done = fn(s, k)
+            return (s, k0), (s, done)
+
+        _, (scan, dones) = jax.lax.scan(body, (start, key), None, length=steps)
+        golden = dict(np.load(os.path.join(GOLDENS, f"{name}.npz")))
+        after = _step_fields(phys_of(scan))
+        for f in ("pos", "quat", "q"):
+            assert np.array_equal(after[f], golden[f]), f"{name} {f}: the scan is not the golden's"
+        if "npc_pos" in golden:
+            assert np.array_equal(after["npc_pos"], golden["npc_pos"]), name
+        rec.update({f"{name}/after/{f}": v for f, v in after.items()})
+        rec[f"{name}/done"] = np.asarray(dones)
+        assert not rec[f"{name}/done"].any(), f"{name}: an env reset in the golden's run"
+        before = jax.tree.map(lambda s0, s: jnp.concatenate([s0[None], s[:-1]]), start, scan)
+        rec.update(_flat(f"{name}/state", before))
+        jstep = jax.jit(lambda s, k: fn(s, k)[0])
+        rng = np.random.default_rng(0)
+        env_of = {f: np.zeros(steps) for f in after}
+        jit_of = {f: np.zeros(steps) for f in after}
+        for t in range(steps):
+            key, k = jax.random.split(key)
+            draws, _ = _step_draws(env, k, E, env.num_agents, env.num_npcs)
+            rec.update({f"{name}/draw/{t}/{d}": v for d, v in draws.items()})
+            state = jax.tree.map(lambda x: x[t], before)
+            for f, v in _step_fields(phys_of(jstep(state, k))).items():
+                jit_of[f][t] = float(np.abs(v - after[f][t]).max())
+            for _ in range(ENVELOPE_DRAWS):
+                out = _step_fields(phys_of(jstep(_nudged(state, phys_of, rng), k)))
+                for f, v in out.items():
+                    env_of[f][t] = max(env_of[f][t], float(np.abs(v - after[f][t]).max()))
+        rec.update({f"{name}/envelope/{f}": v for f, v in env_of.items()})
+        rec.update({f"{name}/jit/{f}": v for f, v in jit_of.items()})
+        print(f"{name}: JAX's envelope, largest (step): " + ", ".join(
+            f"{f} {v.max():.3e} ({int(v.argmax())})" for f, v in env_of.items()), flush=True)
+    return rec
+
+
 FILES = {
     "torch_go1gate_step.npz": partial(record, "go1gate", ("post-reset", "in-contact")),
     "torch_go1gate_reset_step.npz": partial(record, "go1gate", ("reset-step",)),
@@ -1711,11 +1833,13 @@ FILES = {
     "torch_aos_substep.npz": record_aos_substep,
     "torch_go1gate_aos_step.npz": record_aos_step,
     "torch_golden_traj.npz": record_golden_traj,
+    "torch_golden_steps.npz": record_golden_steps,
 }
 
 
 def main(names):
     for name in names or [n for n in FILES if not os.path.exists(os.path.join(GOLDENS, n))]:
+        name = os.path.basename(name)  # a FILE may be given by its path in the repo
         rec = FILES[name]()
         out = os.path.normpath(os.path.join(GOLDENS, name))
         np.savez_compressed(out, **rec)
