@@ -178,6 +178,7 @@ class TestCommandMPC:
             assert crossing is not None, "agent never crossed the gate plane"
             assert abs(xa[crossing, 1] - 0.3) < 0.5
 
+    @pytest.mark.slow
     def test_closed_loop_mpc_on_go1gate(self):
         """Full stack: fit the command-tracking model from the real env,
         then iLQR plans commands the real env executes."""

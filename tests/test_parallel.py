@@ -1,5 +1,6 @@
 """Multi-chip sharding tests on the virtual 8-device CPU mesh (SURVEY.md §4:
-'test multi-node without a real cluster')."""
+'test multi-node without a real cluster'). The sharded PPO update is in
+tests/test_parallel_ppo.py, so that `--dist loadfile` runs it in parallel."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +22,7 @@ def test_mesh_has_8_devices():
     assert len(jax.devices()) == 8
 
 
+@pytest.mark.slow
 def test_sharded_matches_single_device(setup):
     """Bit-for-bit: stepping with the env axis sharded across 8 devices gives
     identical results to unsharded execution."""
@@ -54,18 +56,6 @@ def test_sharded_multi_step_stable(setup):
     # state stayed sharded across the mesh
     shard_devs = {d for d in ts.env.phys.agents.pos.devices()}
     assert len(shard_devs) == 8
-
-
-def test_ppo_update_sharded():
-    from mqe_tpu.learn.ppo import PPOConfig, PPOTrainer
-
-    wrap, _ = make_mqe_env("go1gate", num_envs=8, seed=0)
-    trainer = PPOTrainer(wrap, PPOConfig(rollout_len=2, num_minibatches=2, ppo_epochs=1))
-    ts = trainer.init_state()
-    mesh = env_mesh(8)
-    ts = ts.replace(env_state=shard_env_axis(ts.env_state, mesh))
-    ts, metrics = trainer.update(ts)
-    assert np.isfinite(float(metrics["loss"]))
 
 
 if __name__ == "__main__":

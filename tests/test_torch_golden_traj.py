@@ -41,7 +41,7 @@ def _golden(name):
 
 
 def _check(golden, replay, early=20, pos_tol_early=0.01, pos_tol_late=0.08, key="pos"):
-    """tests/test_golden_traj.py::_check: tight early, coarse late."""
+    """tests/_golden_traj_common.py::_check: tight early, coarse late."""
     g, r = golden[key], replay[key]
     assert g.shape == r.shape
     np.testing.assert_allclose(r[:early], g[:early], atol=pos_tol_early,

@@ -166,7 +166,7 @@ def test_step_matches_live_jax(live_loco, case):
 
 
 def test_locomotion_env_step():
-    """Mirrors tests/test_learn.py::test_locomotion_env_step."""
+    """Mirrors tests/test_learn_locomotion.py::test_locomotion_env_step."""
     env = LocomotionEnv(num_envs=4, seed=0, device="cpu")
     ts, obs = env.reset()
     assert obs.shape == (4, 1, 70)

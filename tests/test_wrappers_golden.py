@@ -11,39 +11,25 @@ Two layers:
      gate commented spec (go1_gate_wrapper.py:84-154), pushbox box-delta
      (go1_pushbox_wrapper.py:53-84), seesaw terms (go1_seesaw_wrapper.py),
      rotation/bridge success-punishment pairs, football goal rewards.
+
+A task's build, reset and step take one to three minutes on the CPU, so each
+task has a file of its own, this one for go1gate and
+tests/test_wrappers_golden_<task>.py for the others, which `--dist loadfile`
+hands to different workers. A file holds the golden tests of its own task, so
+that no task's env is built and reset in two workers. The helpers and
+`BUILD_TASKS`, the task of each file, are in tests/_wrappers_golden_common.py;
+tests/test_wrappers_golden_tasks.py checks that the files take every task of
+the registry once.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mqe_tpu.envs import ENV_DICT, make_mqe_env
-
-ALL_TASKS = sorted(ENV_DICT.keys())
-
-_CACHE = {}
+from _wrappers_golden_common import BUILD_TASKS, _move_agent, get_wrap, no_reset_info, obs_of
 
 
-def get_wrap(task, num_envs=2):
-    if task not in _CACHE:
-        wrap, _ = make_mqe_env(task, num_envs=num_envs, seed=0)
-        ts, obs = wrap.reset(jax.random.PRNGKey(0))
-        _CACHE[task] = (wrap, ts, obs)
-    return _CACHE[task]
-
-
-def no_reset_info(E=2):
-    return {
-        "reset_mask": jnp.zeros(E, dtype=bool),
-        "time_outs": jnp.zeros(E, dtype=bool),
-    }
-
-
-def obs_of(wrap, state):
-    return wrap.env._observations(state)
-
-
-@pytest.mark.parametrize("task", ALL_TASKS)
+@pytest.mark.parametrize("task", BUILD_TASKS["test_wrappers_golden.py"])
 def test_build_step_all(task):
     wrap, ts, obs = get_wrap(task)
     A = getattr(wrap, "controlled_agents", wrap.num_agents)
@@ -58,28 +44,6 @@ def test_build_step_all(task):
     for k, v in info["reward_terms"].items():
         assert np.asarray(v).shape == (2,), k  # per-env term values
         assert np.isfinite(np.asarray(v)).all(), k
-
-
-# ---------------------------------------------------------------------------
-# golden reward values
-# ---------------------------------------------------------------------------
-
-def _move_agent(state, env, idx, world_xy=None, dz=None, rpy=None):
-    """Return a state with agent idx teleported (world coordinates)."""
-    ag = state.phys.agents
-    pos = ag.pos
-    if world_xy is not None:
-        pos = pos.at[:, idx, 0].set(world_xy[0]).at[:, idx, 1].set(world_xy[1])
-    if dz is not None:
-        pos = pos.at[:, idx, 2].set(dz)
-    ag = ag.replace(pos=pos)
-    if rpy is not None:
-        from mqe_tpu.ops import quat as qo
-
-        r, p, y = rpy
-        q = qo.quat_from_euler_xyz(jnp.array(r), jnp.array(p), jnp.array(y))
-        ag = ag.replace(quat=ag.quat.at[:, idx].set(q))
-    return state.replace(phys=state.phys.replace(agents=ag))
 
 
 def test_gate_golden():
@@ -117,327 +81,3 @@ def test_gate_golden():
     rew3, _, _ = wrap._reward(st3, obs3, extra3, None, no_reset_info())
     assert float(rew3[0, 0]) == pytest.approx(s["contact_punishment_scale"], abs=1e-5)
     assert float(rew3[1, 0]) == pytest.approx(0.0, abs=1e-5)
-
-
-def test_pushbox_golden():
-    wrap, ts, _ = get_wrap("go1pushbox")
-    s = wrap.scales
-    state = ts.env
-    obs = obs_of(wrap, state)
-    extra = wrap._extra_init(state, obs)
-    # move the box +0.3 x
-    npcs = state.phys.npcs
-    st = state.replace(
-        phys=state.phys.replace(npcs=npcs.replace(pos=npcs.pos.at[:, 0, 0].add(0.3)))
-    )
-    rew, _, terms = wrap._reward(st, obs_of(wrap, st), extra, None, no_reset_info())
-    exp = s["box_x_movement_reward_scale"] * 0.3
-    np.testing.assert_allclose(np.asarray(rew), exp, rtol=1e-4)
-    # reward is zeroed across resets (ref go1_pushbox_wrapper.py:75)
-    info = no_reset_info()
-    info["reset_mask"] = jnp.array([True, False])
-    rew2, _, _ = wrap._reward(st, obs_of(wrap, st), extra, None, info)
-    assert float(rew2[0, 0]) == pytest.approx(0.0, abs=1e-6)
-    assert float(rew2[1, 0]) == pytest.approx(exp, rel=1e-4)
-
-
-def test_sheep_hard_mixed_golden():
-    wrap, ts, _ = get_wrap("go1sheep-hard")
-    s = wrap.scales
-    assert s["mixed_sheep_reward_scale"] == 1
-    state = ts.env
-    obs = obs_of(wrap, state)
-    extra = wrap._extra_init(state, obs)
-    sheep = np.asarray(wrap._sheep_pos(state))   # (E, N, 3) env-relative
-    gate = np.asarray(extra["gate"])             # (E, 2)
-    d = np.linalg.norm(sheep[..., :2] - gate[:, None, :], axis=-1)
-    m = np.exp(-d / 2) * s["mixed_sheep_reward_scale"]
-    m = np.where(sheep[..., 0] >= gate[:, 0:1], s["mixed_sheep_reward_scale"], m)
-    exp = m.sum(axis=1)
-    rew, _, terms = wrap._reward(state, obs, extra, None, no_reset_info())
-    np.testing.assert_allclose(np.asarray(rew)[:, 0], exp, rtol=1e-4)
-
-
-def test_sheep_easy_movement_golden():
-    wrap, ts, _ = get_wrap("go1sheep-easy")
-    s = wrap.scales
-    state = ts.env
-    obs = obs_of(wrap, state)
-    extra = wrap._extra_init(state, obs)
-    npcs = state.phys.npcs
-    st = state.replace(
-        phys=state.phys.replace(npcs=npcs.replace(pos=npcs.pos.at[:, :, 0].add(0.4)))
-    )
-    rew, _, terms = wrap._reward(st, obs_of(wrap, st), extra, None, no_reset_info())
-    exp = s["sheep_movement_reward_scale"] * 0.4
-    np.testing.assert_allclose(np.asarray(rew), exp, rtol=1e-4)
-
-
-def test_seesaw_golden():
-    wrap, ts, _ = get_wrap("go1seesaw")
-    env, s = wrap.env, wrap.scales
-    state = ts.env
-    obs = obs_of(wrap, state)
-    extra = wrap._extra_init(state, obs)
-    # x movement: +0.2 each agent -> dx.sum = 0.4 (shared)
-    ag = state.phys.agents
-    st = state.replace(
-        phys=state.phys.replace(agents=ag.replace(pos=ag.pos.at[..., 0].add(0.2)))
-    )
-    obs2 = obs_of(wrap, st)
-    rew, _, terms = wrap._reward(st, obs2, extra, None, no_reset_info())
-    z = np.asarray(obs2.base_pos[..., 2])
-    y = np.asarray(obs2.base_pos[..., 1])
-    exp = (
-        s["x_movement_reward_scale"] * 0.4
-        + s["height_reward_scale"] * (z.sum(axis=1) - 0.56)
-        + s["y_punishment_scale"] * ((y ** 2).sum(axis=1) - 0.5)
-    )
-    np.testing.assert_allclose(np.asarray(rew)[:, 0], exp, rtol=1e-4, atol=1e-5)
-    # fall punishment
-    st2 = st.replace(r_term=jnp.array([True, False]))
-    rew2, _, _ = wrap._reward(st2, obs2, wrap._extra_init(st2, obs2), None, no_reset_info())
-    base, _, _ = wrap._reward(st, obs2, wrap._extra_init(st, obs2), None, no_reset_info())
-    assert float(rew2[0, 0] - base[0, 0]) == pytest.approx(s["fall_punishment_scale"], abs=1e-5)
-
-
-def test_football_defender_golden():
-    wrap, ts, _ = get_wrap("go1football-defender")
-    s = wrap.scales
-    state = ts.env
-    gate = np.asarray(wrap._gate(state))
-    # put the ball past the goal line
-    npcs = state.phys.npcs
-    ox = wrap.env.env_origins[:, 0]
-    st = state.replace(
-        phys=state.phys.replace(
-            npcs=npcs.replace(pos=npcs.pos.at[:, 0, 0].set(ox + gate[0] + 0.5))
-        )
-    )
-    obs = obs_of(wrap, st)
-    rew, _, terms = wrap._reward(st, obs, {}, None, no_reset_info())
-    ball = np.asarray(wrap._ball(st))
-    d = np.linalg.norm(ball[:, :2] - gate[None, :], axis=-1)
-    exp = s["goal_reward_scale"] + s["ball_gate_distance_reward_scale"] * np.exp(-d / 3)
-    np.testing.assert_allclose(np.asarray(rew)[:, 0], exp, rtol=1e-4)
-    assert rew.shape == (2, 2)  # defender (3rd agent) is not rewarded
-
-
-def test_football_game_zero_sum_golden():
-    wrap, ts, _ = get_wrap("go1football-1vs1")
-    s = wrap.scales
-    state = ts.env
-    bt = wrap.bt
-    gx_right = bt["init"]["block_length"] + bt["gate"]["block_length"] + bt["plane"]["block_length"]
-    npcs = state.phys.npcs
-    ox = wrap.env.env_origins[:, 0]
-    st = state.replace(
-        phys=state.phys.replace(
-            npcs=npcs.replace(pos=npcs.pos.at[:, 0, 0].set(ox + gx_right + 0.5))
-        )
-    )
-    rew, _, _ = wrap._reward(st, obs_of(wrap, st), {}, None, no_reset_info())
-    g = s.get("goal_reward_scale", 10)
-    assert float(rew[0, 0]) == pytest.approx(g)
-    assert float(rew[0, 1]) == pytest.approx(-g)  # zero-sum
-
-
-def test_tug_halving_golden():
-    """Tug rules (ref go1_tug_wrapper.py:89-113): success = -q*scale when
-    q<0, HALVED if the disc did not move further toward the winner
-    (last_q <= q); punishment mirrored for q>0, halved if last_q > q."""
-    wrap, ts, _ = get_wrap("go1tug")
-    s = wrap.scales
-    state = ts.env
-
-    def with_q(q):
-        npcs = state.phys.npcs
-        return state.replace(
-            phys=state.phys.replace(npcs=npcs.replace(q=npcs.q.at[:, 0, 0].set(q)))
-        )
-
-    st = with_q(-0.4)
-    obs = obs_of(wrap, st)
-    extra = wrap._extra_init(st, obs)
-
-    # improving (last_q > q): full reward
-    extra_f = {**extra, "last_npc": jnp.full((2,), -0.2)}
-    rew_f, _, _ = wrap._reward(st, obs, extra_f, None, no_reset_info())
-    # stalled (last_q <= q): halved
-    extra_h = {**extra, "last_npc": jnp.full((2,), -0.6)}
-    rew_h, _, _ = wrap._reward(st, obs, extra_h, None, no_reset_info())
-
-    full = s["success_reward_scale"] * 0.4
-    # pos reward/punishment also contribute; isolate via the success delta
-    delta = float(rew_f[0, 0] - rew_h[0, 0])
-    assert delta == pytest.approx(full / 2, rel=1e-4)
-
-    # punishment side (q > 0)
-    st2 = with_q(0.4)
-    obs2 = obs_of(wrap, st2)
-    extra2 = wrap._extra_init(st2, obs2)
-    pn_f = {**extra2, "last_npc": jnp.full((2,), 0.2)}  # worsening: last < q -> full?
-    pn_h = {**extra2, "last_npc": jnp.full((2,), 0.6)}  # improving: last > q -> halved
-    rew_pf, _, _ = wrap._reward(st2, obs2, pn_f, None, no_reset_info())
-    rew_ph, _, _ = wrap._reward(st2, obs2, pn_h, None, no_reset_info())
-    pun = s["punishment_reward_scale"] * 0.4
-    delta2 = float(rew_ph[0, 0] - rew_pf[0, 0])
-    assert delta2 == pytest.approx(pun / 2, rel=1e-4)
-
-    # only agent 0 is rewarded; agent 1's stream is the mirror
-    assert float(rew_f[0, 1]) == pytest.approx(0.0, abs=1e-6)
-
-
-def test_tug_selfplay_reward():
-    """Self-play mode mirrors the agent-0 laws per seat: seat 0's channel
-    reproduces the parity reward exactly; seat 1 earns the mirrored win
-    when the disc moves to ITS side (q > 0)."""
-    wrap, ts, _ = get_wrap("go1tug")
-    s = wrap.scales
-    state = ts.env
-
-    def with_q(q):
-        npcs = state.phys.npcs
-        return state.replace(
-            phys=state.phys.replace(npcs=npcs.replace(q=npcs.q.at[:, 0, 0].set(q)))
-        )
-
-    st = with_q(-0.4)
-    obs = obs_of(wrap, st)
-    extra = {**wrap._extra_init(st, obs), "last_npc": jnp.full((2,), -0.2)}
-    rew_par, _, _ = wrap._reward(st, obs, extra, None, no_reset_info())
-    rew_sp = wrap._selfplay_reward(st, obs, rew_par, extra)
-    # seat 0: identical to the reference laws
-    assert float(rew_sp[0, 0]) == pytest.approx(float(rew_par[0, 0]), rel=1e-5)
-
-    # mirrored configuration: disc on seat 1's side. Isolate the win /
-    # punishment terms from the 2^d distance shaping via improving-vs-
-    # stalled deltas (same technique as test_tug_halving_golden — last_npc
-    # does not enter the shaping terms).
-    st2 = with_q(0.4)
-    obs2 = obs_of(wrap, st2)
-    base_extra = wrap._extra_init(st2, obs2)
-    e_imp = {**base_extra, "last_npc": jnp.full((2,), 0.2)}    # improving for seat 1
-    e_stall = {**base_extra, "last_npc": jnp.full((2,), 0.6)}  # stalled for seat 1
-    zero = jnp.zeros_like(rew_par)
-    sp_imp = wrap._selfplay_reward(st2, obs2, zero, e_imp)
-    sp_stall = wrap._selfplay_reward(st2, obs2, zero, e_stall)
-    # seat-1 win: full when improving, halved when stalled
-    delta1 = float(sp_imp[0, 1] - sp_stall[0, 1])
-    assert delta1 == pytest.approx(s["success_reward_scale"] * 0.4 / 2, rel=1e-4)
-    # seat-0 punishment: full when NOT improving for seat 0 (lastq < q),
-    # halved when improving (lastq > q) — e_imp is seat-0-worsening
-    delta0 = float(sp_imp[0, 0] - sp_stall[0, 0])
-    assert delta0 == pytest.approx(-s["punishment_reward_scale"] * 0.4 / 2, rel=1e-4)
-
-
-def test_wrestling_fall_golden():
-    wrap, ts, _ = get_wrap("go1wrestling")
-    s = wrap.scales
-    state = ts.env
-    # flip agent 1 upside-down (pitch ~ pi) -> agent 0 success
-    st = _move_agent(state, wrap.env, 1, rpy=(0.0, np.pi * 0.95, 0.0))
-    obs = obs_of(wrap, st)
-    rew, _, _ = wrap._reward(st, obs, {}, None, no_reset_info())
-    assert float(rew[0, 0]) == pytest.approx(s["success_reward_scale"])
-    # reference parity: reward flows to agent 0's channel ONLY
-    # (ref go1_wrestling_wrapper.py:62-81 — no repeat)
-    assert float(rew[0, 1]) == pytest.approx(0.0, abs=1e-6)
-    # flip agent 0 (roll) -> punishment on agent 0
-    st2 = _move_agent(state, wrap.env, 0, rpy=(np.pi * 0.5, 0.0, 0.0))
-    rew2, _, _ = wrap._reward(st2, obs_of(wrap, st2), {}, None, no_reset_info())
-    assert float(rew2[0, 0]) == pytest.approx(-s["punishment_scale"])
-    assert float(rew2[0, 1]) == pytest.approx(0.0, abs=1e-6)
-
-    # self-play training mode: per-seat zero-sum reward on the pre-reset
-    # state with env-termination fall thresholds (|pitch| 0.95pi > 1.6 and
-    # |roll| 0.5pi > 0.8 both qualify)
-    rew_sp = wrap._selfplay_reward(st, obs, rew, {})
-    # agent 1 fell: seat 0 earns +S, seat 1 earns -P
-    assert float(rew_sp[0, 0]) == pytest.approx(s["success_reward_scale"])
-    assert float(rew_sp[0, 1]) == pytest.approx(-s["punishment_scale"])
-    rew_sp2 = wrap._selfplay_reward(st2, obs_of(wrap, st2), rew2, {})
-    # agent 0 fell: seat 0 earns -P, seat 1 earns +S
-    assert float(rew_sp2[0, 0]) == pytest.approx(-s["punishment_scale"])
-    assert float(rew_sp2[0, 1]) == pytest.approx(s["success_reward_scale"])
-
-
-def test_rotation_golden():
-    wrap, ts, _ = get_wrap("go1revolvingdoor")
-    s = wrap.scales
-    env = wrap.env
-    state = ts.env
-    tx = wrap._target_x()
-    ox, oy = float(env.env_origins[0, 0]), float(env.env_origins[0, 1])
-    st = _move_agent(state, env, 0, world_xy=(ox + tx + 0.3, oy))
-    obs = obs_of(wrap, st)
-    extra = wrap._extra_init(st, obs)
-    rew, _, _ = wrap._reward(st, obs, extra, None, no_reset_info())
-    # agent 0 past target: success; distance reward can't fire (fresh extra)
-    assert float(rew[0, 0]) == pytest.approx(s["success_reward_scale"], abs=1e-5)
-    # opponent past target: punishment
-    st2 = _move_agent(state, env, 1, world_xy=(ox + tx + 0.3, oy))
-    obs2 = obs_of(wrap, st2)
-    rew2, _, _ = wrap._reward(st2, obs2, wrap._extra_init(st2, obs2), None, no_reset_info())
-    assert float(rew2[0, 0]) == pytest.approx(-s["punishment_scale"], abs=1e-5)
-    # distance reward: moved closer than last_dis
-    extra3 = wrap._extra_init(state, obs_of(wrap, state))
-    extra3 = {**extra3, "last_dis": extra3["last_dis"] + 1.0}
-    rew3, _, _ = wrap._reward(state, obs_of(wrap, state), extra3, None, no_reset_info())
-    assert float(rew3[0, 0]) == pytest.approx(s["distance_reward_scale"], abs=1e-5)
-
-
-def test_bridge_golden():
-    wrap, ts, _ = get_wrap("go1bridge")
-    s = wrap.scales
-    env = wrap.env
-    state = ts.env
-    obs0 = obs_of(wrap, state)
-    extra = wrap._extra_init(state, obs0)
-    # opponent fell below the bridge -> success
-    st = _move_agent(state, env, 1, dz=0.2)
-    obs = obs_of(wrap, st)
-    rew, _, _ = wrap._reward(st, obs, extra, None, no_reset_info())
-    assert float(rew[0, 0]) >= s["success_reward_scale"] - 1e-4
-    # self fell -> punishment
-    st2 = _move_agent(state, env, 0, dz=0.2)
-    rew2, _, _ = wrap._reward(st2, obs_of(wrap, st2), extra, None, no_reset_info())
-    assert float(rew2[0, 0]) <= -s["punishment_scale"] + s["success_reward_scale"] * 0 + 1e-4
-    # crossed to the opponent's start -> target reward
-    tgt_x = float(extra["target"][0, 0, 0])
-    ox, oy = float(env.env_origins[0, 0]), float(env.env_origins[0, 1])
-    st3 = _move_agent(state, env, 0, world_xy=(ox + tgt_x + 0.2, oy))
-    st3 = _move_agent(st3, env, 0, dz=0.6)
-    rew3, _, _ = wrap._reward(st3, obs_of(wrap, st3), extra, None, no_reset_info())
-    assert float(rew3[0, 0]) == pytest.approx(s["target_reward_scale"], abs=1e-4)
-
-
-def test_tug_obs_mirror_layout():
-    """Tug obs layout (ref go1_tug_wrapper.py:53-61): 6 base + (q, qd) + dis
-    + last_q = 10 dims, with agent 1's y / roll / qd? columns mirrored."""
-    wrap, ts, obs = get_wrap("go1tug")
-    assert wrap.obs_dim == 10
-    state = ts.env
-    o = np.asarray(wrap._obs(state, obs_of(wrap, state), ts.extra))
-    bi = np.asarray(wrap._base_info(obs_of(wrap, state)))
-    # agent 0 unmirrored
-    np.testing.assert_allclose(o[:, 0, :6], bi[:, 0, :], atol=1e-6)
-    # agent 1: columns 1 (y) and 4 (pitch?) mirrored
-    np.testing.assert_allclose(o[:, 1, 1], -bi[:, 1, 1], atol=1e-6)
-    np.testing.assert_allclose(o[:, 1, 4], -bi[:, 1, 4], atol=1e-6)
-
-
-def test_wrestling_obs_mirror_layout():
-    wrap, ts, obs = get_wrap("go1wrestling")
-    state = ts.env
-    ob = obs_of(wrap, state)
-    o = np.asarray(wrap._obs(state, ob, ts.extra))
-    bi = np.asarray(wrap._base_info(ob))
-    np.testing.assert_allclose(o[:, 0, :6], bi[:, 0, :], atol=1e-6)
-    flip = np.flip(bi, axis=1)
-    for col in (1, 4, 7, 10):
-        np.testing.assert_allclose(
-            o[:, 1, col],
-            -(flip[:, 1, col - 6] if col >= 6 else bi[:, 1, col]),
-            atol=1e-6,
-        )
